@@ -1,0 +1,240 @@
+"""MaskRCNN R50-FPN and its inference pass: port of
+``iif_tpu/detection/detector.py`` (``MaskRCNN`` in its resnet + fpn +
+shared2fc + FCN-mask configuration, ``DetTestCfg``, ``normalize_if_uint8``,
+``make_anchor_generator``, ``fpn_shapes``, ``maskrcnn_simple_test``).
+
+The module holds mmdet's state_dict names (``backbone.*``, ``neck.*``,
+``rpn_head.*``, ``roi_head.bbox_head.*``, ``roi_head.mask_head.*``), so an
+mmdet checkpoint loads as it is. Images enter as (B, H, W, 3) like the JAX
+package's; inside the trunk they are NCHW in ``channels_last`` memory, so
+each FPN map permuted to NHWC is a contiguous (B, H, W, C) view for the
+RoIAlign kernel. Each stage of ``maskrcnn_simple_test`` is a named
+``record_function`` span, so a ``torch.profiler`` trace splits a request
+by stage (a no-op when no profiler runs).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from iif_torch.detection.bbox_head import (
+    Shared2FCBBoxHead,
+    bbox_head_get_bboxes,
+)
+from iif_torch.detection.mask_head import FCNMaskHead
+from iif_torch.detection.necks import FPN
+from iif_torch.detection.roi_extractor import SingleRoIExtractor
+from iif_torch.detection.rpn import RPNHead, rpn_proposals
+from iif_torch.models.resnet import ResNet
+from iif_torch.ops.anchors import AnchorGenerator
+
+_DEPTH_LAYERS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+# ImageNet pixel stats (0-255 scale) for device-side normalisation of uint8
+# canvases.
+IMG_MEAN = (123.675, 116.28, 103.53)
+IMG_STD = (58.395, 57.12, 57.375)
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def normalize_if_uint8(images: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / std when the canvas arrives as raw uint8 pixels;
+    identity for already-normalised float input. (..., 3) layout."""
+    if images.dtype != torch.uint8:
+        return images
+    mean = torch.tensor(IMG_MEAN, dtype=torch.float32, device=images.device)
+    std = torch.tensor(IMG_STD, dtype=torch.float32, device=images.device)
+    return (images.float() - mean) / std
+
+
+class StandardRoIHead(nn.Module):
+    """Container for mmdet's ``roi_head.bbox_head`` / ``roi_head.mask_head``
+    names."""
+
+    def __init__(self, num_classes: int, with_mask: bool):
+        super().__init__()
+        self.bbox_head = Shared2FCBBoxHead(num_classes)
+        self.mask_head = FCNMaskHead(num_classes) if with_mask else None
+
+
+class MaskRCNN(nn.Module):
+    """Takes the keyword arguments of a ``configs/`` model dict.
+    ``frozen_stages``, ``norm_eval`` and ``cls_init`` shape training only
+    and are accepted for the configs' sake; ``compute_dtype`` is the trunk's
+    (``"bfloat16"`` in the IIF configs)."""
+
+    def __init__(self, num_classes: int = 1203, depth: int = 50,
+                 with_mask: bool = True, frozen_stages: int = 1,
+                 norm_eval: bool = True, compute_dtype=None,
+                 cls_predictor: str = "linear", mask_predictor: str = "conv",
+                 cls_init: tuple = ("normal", 0.01)):
+        super().__init__()
+        if cls_predictor != "linear" or mask_predictor != "conv":
+            raise NotImplementedError(
+                "the port serves the linear classifier and conv mask "
+                f"predictor only, got {cls_predictor!r}/{mask_predictor!r}")
+        if isinstance(compute_dtype, str):
+            compute_dtype = _DTYPES[compute_dtype]
+        self.num_classes = num_classes
+        self.with_mask = with_mask
+        self.backbone = ResNet(_DEPTH_LAYERS[depth], frozen_stages,
+                               norm_eval, compute_dtype)
+        self.neck = FPN(compute_dtype=compute_dtype)
+        self.rpn_head = RPNHead(num_anchors=3, compute_dtype=compute_dtype)
+        self.roi_head = StandardRoIHead(num_classes, with_mask)
+        self._anchors: Dict[Any, list] = {}
+
+    def extract_feat(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """(B, H, W, 3) uint8 or normalised float -> 5 FPN maps, NCHW
+        (P2..P5 in channels_last memory)."""
+        x = normalize_if_uint8(images).permute(0, 3, 1, 2)
+        feats = self.neck(self.backbone(x))
+        return tuple(f.contiguous(memory_format=torch.channels_last)
+                     if i < 4 else f for i, f in enumerate(feats))
+
+    def anchors(self, img_hw: Tuple[int, int], device) -> list:
+        """Per-level anchors on ``device`` for a canvas, built once."""
+        key = (tuple(img_hw), str(device))
+        if key not in self._anchors:
+            self._anchors[key] = [
+                torch.from_numpy(a).to(device) for a in
+                make_anchor_generator().grid_anchors(fpn_shapes(img_hw))]
+        return self._anchors[key]
+
+
+class DetTestCfg(NamedTuple):
+    rpn_nms_pre: int = 1000
+    rpn_max_per_img: int = 1000
+    rpn_nms_iou: float = 0.7
+    score_thr: float = 0.05          # LVIS configs use 1e-4
+    nms_iou: float = 0.5
+    max_per_img: int = 100           # LVIS: 300
+    nms_kind: str = "nms"            # only exact greedy "nms" is ported
+    mask_thr_binary: float = 0.5
+
+
+def make_anchor_generator() -> AnchorGenerator:
+    """RPN anchors of every IIF config: scales [8], ratios [0.5, 1, 2],
+    strides [4, 8, 16, 32, 64]."""
+    return AnchorGenerator(strides=[4, 8, 16, 32, 64],
+                           ratios=[0.5, 1.0, 2.0], scales=[8.0])
+
+
+def fpn_shapes(img_hw: Tuple[int, int], num_levels: int = 5):
+    h, w = img_hw
+    return [(-(-h // s), -(-w // s)) for s in (4, 8, 16, 32, 64)][:num_levels]
+
+
+def random_init_(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
+    """Seeded random weights for every parameter and BN statistic, at
+    scales that keep a deep trunk finite and the heads' outputs spread:
+    normal(0, 1/sqrt(fan_in)) weights, BN scale in [0.5, 1] (the residual
+    ``bn3`` in [0.1, 0.3]), small random shifts and BN statistics."""
+    def normal(t, std):
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+    def uniform(t, lo, hi):
+        t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=generator))
+
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(
+                model.named_buffers()):
+            *mods, leaf = name.split(".")
+            if leaf == "num_batches_tracked":
+                continue
+            if any(m.startswith("bn") for m in mods) \
+                    or "downsample.1" in name:
+                if leaf == "weight":
+                    lo, hi = (0.1, 0.3) if ".bn3" in name else (0.5, 1.0)
+                    uniform(t, lo, hi)
+                elif leaf in ("bias", "running_mean"):
+                    normal(t, 0.1)
+                elif leaf == "running_var":
+                    uniform(t, 0.5, 1.5)
+            elif leaf == "bias":
+                normal(t, 0.01)
+            else:
+                normal(t, 1.0 / math.sqrt(t[0].numel()))
+    return model
+
+
+@torch.inference_mode()
+def maskrcnn_simple_test(
+    model: MaskRCNN,
+    images: torch.Tensor,
+    loss_cls,
+    cfg: DetTestCfg = DetTestCfg(),
+    scale_factor: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Inference on (B, H, W, 3) canvases: fixed-shape per-image detections
+    (boxes (B,K,4), scores (B,K), labels (B,K), valid (B,K), masks
+    (B,K,28,28) probabilities for the predicted class)."""
+    if cfg.nms_kind != "nms":
+        raise NotImplementedError(f"nms_kind {cfg.nms_kind!r} is not ported")
+    b, img_h, img_w, _ = images.shape
+    dev = images.device
+    with record_function("backbone_fpn"):
+        feats = model.extract_feat(images)
+    with record_function("rpn"):
+        cls_scores, bbox_preds = model.rpn_head(feats)
+        proposals, _, prop_valid = rpn_proposals(
+            cls_scores, bbox_preds, model.anchors((img_h, img_w), dev),
+            (img_h, img_w), nms_pre=cfg.rpn_nms_pre,
+            max_per_img=cfg.rpn_max_per_img, nms_iou=cfg.rpn_nms_iou)
+
+    p = proposals.shape[1]
+    nhwc = [f.permute(0, 2, 3, 1) for f in feats[:4]]
+    with record_function("bbox_roi_align"):
+        batch_idx = torch.arange(b, dtype=torch.float32,
+                                 device=dev).repeat_interleave(p)
+        rois5 = torch.cat([batch_idx[:, None], proposals.reshape(-1, 4)], 1)
+        roi_feats = SingleRoIExtractor((7, 7))(nhwc, rois5)
+    with record_function("bbox_head"):
+        cls_score, bbox_pred, _ = model.roi_head.bbox_head(roi_feats)
+        cls_score = cls_score.reshape(b, p, -1)
+        bbox_pred = bbox_pred.reshape(b, p, -1)
+        # suppress padded proposals
+        cls_score = torch.where(prop_valid[..., None], cls_score,
+                                torch.full_like(cls_score, -1e9))
+    with record_function("bbox_nms"):
+        dets, scores, labels, det_valid = bbox_head_get_bboxes(
+            proposals, cls_score, bbox_pred, (img_h, img_w), loss_cls,
+            score_thr=cfg.score_thr, nms_iou=cfg.nms_iou,
+            max_per_img=cfg.max_per_img)
+    out = {"boxes": dets, "scores": scores, "labels": labels,
+           "valid": det_valid}
+
+    if model.with_mask:
+        k = dets.shape[1]
+        with record_function("mask_roi_align"):
+            batch_idx2 = torch.arange(b, dtype=torch.float32,
+                                      device=dev).repeat_interleave(k)
+            det_rois = torch.cat([batch_idx2[:, None], dets.reshape(-1, 4)],
+                                 1)
+            mfeats = SingleRoIExtractor((14, 14))(nhwc, det_rois)
+        with record_function("mask_head"):
+            cls_idx = torch.clamp(labels.reshape(-1), 0,
+                                  model.num_classes - 1)
+            sel = model.roi_head.mask_head.logits_for_labels(mfeats, cls_idx)
+            probs = torch.sigmoid(sel.float())
+            out["masks"] = probs.reshape(b, k, *probs.shape[1:])
+
+    if scale_factor is not None:
+        out["boxes"] = out["boxes"] / scale_factor[:, None, :]
+    return out
+
+
+def build_detector(model_cfg: Dict[str, Any]) -> MaskRCNN:
+    """Config dict (``cfg.model``) -> ``MaskRCNN``. Only the MaskRCNN
+    family with a ResNet + FPN trunk is ported."""
+    kw = dict(model_cfg)
+    kind = kw.pop("type", "MaskRCNN")
+    kw.pop("pretrained_backbone", None)
+    if kind != "MaskRCNN":
+        raise NotImplementedError(f"detector type {kind!r} is not ported")
+    return MaskRCNN(**kw)

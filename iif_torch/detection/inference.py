@@ -1,0 +1,193 @@
+"""Inference API: port of ``iif_tpu/detection/inference.py`` (``Detector``,
+``init_detector``, ``inference_detector``, ``inference_detector_batch``,
+``_postprocess``), the reference's ``mmdet/apis/inference.py``.
+
+The model, the canvas and the mask paste-back all run on the detector's
+device; results come back as numpy arrays in the original image frame.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from iif_torch.config import Config
+from iif_torch.detection.datasets import build_dataset
+from iif_torch.detection.detector import (
+    DetTestCfg,
+    MaskRCNN,
+    build_detector,
+    maskrcnn_simple_test,
+    random_init_,
+)
+from iif_torch.detection.losses import (
+    DetCrossEntropyLoss,
+    DetIIFLoss,
+    compute_det_iif_from_counts,
+    load_iif_csv,
+)
+from iif_torch.detection.mask_head import paste_masks
+from iif_torch.detection.pipeline import DetectionPipeline
+from iif_torch.device import resolve_device
+
+
+class Detector:
+    """Bundles model + loss/test config + pipeline for repeated calls."""
+
+    def __init__(self, model: MaskRCNN, loss_cls, test_cfg: DetTestCfg,
+                 pipeline: DetectionPipeline, classes: List[str],
+                 device: torch.device):
+        self.model = model
+        self.loss_cls = loss_cls
+        self.test_cfg = test_cfg
+        self.pipeline = pipeline
+        self.CLASSES = classes
+        self.device = device
+
+
+def build_loss_cls(cfg_loss: Dict[str, Any], dataset, num_classes: int):
+    """The classification loss as ``iif_tpu/cli/train_det.py:39-66``
+    builds it (``DetIIFLoss`` or the plain CE)."""
+    kind = cfg_loss.get("type", "DetCrossEntropyLoss")
+    if kind == "DetIIFLoss":
+        path = cfg_loss.get("path")
+        variant = cfg_loss.get("variant", "raw")
+        if path:
+            w = load_iif_csv(path, variant)
+        elif variant.endswith("_obj"):
+            counts = dataset.class_instance_counts()
+            w = compute_det_iif_from_counts(counts, int(counts.sum()),
+                                            variant)
+        else:
+            # N = image corpus size (pre-filter), idf_1204.csv semantics
+            counts = dataset.class_image_counts()
+            total = getattr(dataset, "num_images_total", len(dataset))
+            w = compute_det_iif_from_counts(counts, total, variant)
+        if len(w) != num_classes + 1:
+            raise ValueError(f"{len(w)} IIF weights for {num_classes} "
+                             "classes + background")
+        return DetIIFLoss(weights=w)
+    if kind != "DetCrossEntropyLoss":
+        raise NotImplementedError(f"loss {kind!r} is not ported")
+    return DetCrossEntropyLoss(num_classes=num_classes)
+
+
+def load_checkpoint(model: MaskRCNN, path: str) -> None:
+    """Load an mmdet ``.pth`` (plain or runner checkpoint) by name."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model"):
+        if isinstance(ckpt, dict) and key in ckpt:
+            ckpt = ckpt[key]
+            break
+    model.load_state_dict({k.replace("module.", ""): v
+                           for k, v in ckpt.items()})
+
+
+def init_detector(config: Union[str, Config],
+                  checkpoint: Optional[str] = None,
+                  device: Union[str, torch.device] = "cuda") -> Detector:
+    """Build a detector from a config path. Weights come from an mmdet
+    ``.pth`` checkpoint, or are seeded random (seed 0) without one."""
+    dev = resolve_device(device)
+    cfg = config if not isinstance(config, str) else Config.fromfile(config)
+    model = build_detector(dict(cfg.model))
+    num_classes = cfg.model["num_classes"]
+
+    ds_cfg = {k: v for k, v in cfg.data["test"].items()
+              if k != "oversample_thr"}
+    try:
+        test_ds = build_dataset(ds_cfg)
+        classes = test_ds.CLASSES
+        loss_cls = build_loss_cls(cfg.loss_cls, test_ds, num_classes)
+    except FileNotFoundError:
+        classes = [str(i) for i in range(num_classes)]
+        loss_cls = DetCrossEntropyLoss(num_classes=num_classes)
+
+    pcfg = cfg.get("pipeline", {})
+    if not pcfg.get("keep_ratio", True):
+        raise ValueError("keep_ratio=False is bbox-only; MaskRCNN serving "
+                         "keeps the ratio")
+    pipeline = DetectionPipeline(
+        canvas=tuple(pcfg.get("canvas", (800, 1344))),
+        scales=[tuple(s) for s in pcfg.get("scales", [(1333, 800)])])
+    if checkpoint:
+        load_checkpoint(model, checkpoint)
+    else:
+        random_init_(model, torch.Generator().manual_seed(0))
+    model.eval().to(dev)
+    return Detector(model, loss_cls.to(dev),
+                    DetTestCfg(**cfg.get("test_cfg", {})), pipeline,
+                    classes, dev)
+
+
+# ------------------------------------------------------------------ internals
+def _preprocess(detector: Detector, image: Union[str, np.ndarray]
+                ) -> Tuple[Dict[str, Any], Tuple[int, int]]:
+    """Load one image and resize/pad it onto the static canvas."""
+    if isinstance(image, str):
+        import cv2
+
+        image = cv2.cvtColor(cv2.imread(image), cv2.COLOR_BGR2RGB)
+    h, w = image.shape[:2]
+    return detector.pipeline(image, detector.device), (h, w)
+
+
+def _postprocess(detector: Detector, sample: Dict[str, Any],
+                 out: Dict[str, torch.Tensor], hw: Tuple[int, int],
+                 idx: int = 0, with_masks: bool = True
+                 ) -> Dict[str, np.ndarray]:
+    """Rescale to the original image frame and paste masks (on the
+    device), then read back."""
+    boxes = out["boxes"][idx] / float(sample["scale_factor"])
+    result = {
+        "boxes": boxes.cpu().numpy(),
+        "scores": out["scores"][idx].cpu().numpy(),
+        "labels": out["labels"][idx].cpu().numpy(),
+        "valid": out["valid"][idx].cpu().numpy(),
+    }
+    if "masks" in out and with_masks:
+        result["masks"] = paste_masks(
+            out["masks"][idx], boxes, hw,
+            threshold=detector.test_cfg.mask_thr_binary).cpu().numpy()
+    return result
+
+
+def _run(detector: Detector, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return maskrcnn_simple_test(detector.model, images, detector.loss_cls,
+                                detector.test_cfg)
+
+
+# ------------------------------------------------------------------- public
+@torch.inference_mode()
+def inference_detector(detector: Detector, image: Union[str, np.ndarray],
+                       masks: bool = True) -> Dict[str, np.ndarray]:
+    """Detect on one image (path or RGB array). Returns original-scale
+    boxes/scores/labels/valid (+ full-size boolean masks unless
+    ``masks=False``, which the serving path uses)."""
+    sample, hw = _preprocess(detector, image)
+    out = _run(detector, sample["image"][None])
+    return _postprocess(detector, sample, out, hw, with_masks=masks)
+
+
+@torch.inference_mode()
+def inference_detector_batch(detector: Detector,
+                             images: List[Union[str, np.ndarray]],
+                             pad_to: Optional[int] = None,
+                             masks: bool = True
+                             ) -> List[Dict[str, np.ndarray]]:
+    """Detect on several images in one batched pass. ``pad_to`` fixes the
+    batch size by repeating the last canvas (results for the padding rows
+    are dropped)."""
+    if not images:
+        return []
+    pre = [_preprocess(detector, img) for img in images]
+    n = len(pre)
+    reps = [1] * n
+    if pad_to is not None and pad_to > n:
+        reps[-1] += pad_to - n
+    batch = torch.cat([s["image"][None].expand(r, -1, -1, -1)
+                       for (s, _), r in zip(pre, reps)], 0)
+    out = _run(detector, batch)
+    return [_postprocess(detector, s, out, hw, idx=i, with_masks=masks)
+            for i, (s, hw) in enumerate(pre)]

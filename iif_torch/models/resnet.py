@@ -1,0 +1,117 @@
+"""ResNet v1.5 trunk for detection, inference mode: port of
+``iif_tpu/models/resnet.py`` (``ResNet``, ``Bottleneck``) with mmdet's
+state_dict names (``conv1``, ``bn1``, ``layer{s}.{i}.conv{1,2,3}``,
+``layer{s}.{i}.downsample.{0,1}``).
+
+Padding is explicit as in the JAX package: stem 7x7/2 pad 3, max-pool 3/2
+pad 1, the stride on the 3x3 conv. Parameters stay f32; convolutions run
+in ``compute_dtype`` (flax ``dtype=``), and BatchNorm takes its running
+statistics in f32 and rounds its output back to the compute dtype, as
+flax's BatchNorm does. Tensors are NCHW in ``channels_last`` memory.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor,
+                  dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """Run ``conv`` with input, weight and bias cast to ``dtype`` (flax
+    ``nn.Conv(dtype=...)``); ``None`` keeps f32 parameters and promotes."""
+    if dtype is None:
+        dtype = torch.promote_types(x.dtype, conv.weight.dtype)
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
+                    conv.padding, conv.dilation, conv.groups)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Inference BatchNorm in flax's op order: (x - mean) * (rsqrt(var +
+    eps) * scale) + bias, in f32, rounded to the input dtype. Training-mode
+    statistics are not part of the serving path."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean[:, None, None]) \
+            * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+class Bottleneck(nn.Module):
+    """torchvision v1.5 bottleneck: stride on the 3x3 conv."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False, compute_dtype=None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        out = planes * self.expansion
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
+        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.bn3 = BatchNorm2d(out, eps=1e-5)
+        self.downsample = (nn.Sequential(
+            nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
+            BatchNorm2d(out, eps=1e-5)) if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        out = F.relu(self.bn1(conv_in_dtype(self.conv1, x, dt)))
+        out = F.relu(self.bn2(conv_in_dtype(self.conv2, out, dt)))
+        out = self.bn3(conv_in_dtype(self.conv3, out, dt))
+        identity = x
+        if self.downsample is not None:
+            identity = self.downsample[1](
+                conv_in_dtype(self.downsample[0], x, dt))
+        return F.relu(out + identity)
+
+
+class ResNet(nn.Module):
+    """Bottleneck ResNet returning the four stage outputs (C2..C5).
+
+    ``frozen_stages`` and ``norm_eval`` only matter for training and are
+    kept for the config's sake."""
+
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
+                 frozen_stages: int = -1, norm_eval: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.frozen_stages = frozen_stages
+        self.norm_eval = norm_eval
+        self.compute_dtype = compute_dtype
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = BatchNorm2d(64, eps=1e-5)
+        inplanes = 64
+        for stage, (planes, n_blocks) in enumerate(
+                zip((64, 128, 256, 512), layers), start=1):
+            stride = 1 if stage == 1 else 2
+            blocks = []
+            for i in range(n_blocks):
+                first = i == 0
+                downsample = first and (
+                    stride != 1 or inplanes != planes * Bottleneck.expansion)
+                blocks.append(Bottleneck(
+                    inplanes, planes, stride if first else 1, downsample,
+                    compute_dtype))
+                inplanes = planes * Bottleneck.expansion
+            self.add_module(f"layer{stage}", nn.Sequential(*blocks))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        out = F.relu(self.bn1(conv_in_dtype(self.conv1, x,
+                                            self.compute_dtype)))
+        out = F.max_pool2d(out, 3, stride=2, padding=1)
+        feats = []
+        for stage in range(1, 5):
+            out = getattr(self, f"layer{stage}")(out)
+            feats.append(out)
+        return tuple(feats)

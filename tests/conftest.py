@@ -45,6 +45,9 @@ def pytest_configure(config):
         "markers", "overfit: per-family learning/overfit test "
         "(minutes each on the CPU mesh)")
     config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (a CUDA kernel has no CPU "
+        "mode); skips without one")
+    config.addinivalue_line(
         "markers", "fast: unit-tier test (the <10-min smoke tier; "
         "run with `pytest -m fast`)")
 

@@ -1,0 +1,98 @@
+"""The port's ground rules: ``iif_torch`` and ``chip_smoke.py`` import no
+JAX, flax or ``iif_tpu`` (nor pandas or torchvision, which the card's
+machine lacks; cv2 only lazily inside a function), and the entry points
+run on CUDA unless given ``device="cpu"``."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "iif_tpu", "pandas", "torchvision"}
+
+
+def _port_files():
+    return sorted((REPO / "iif_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+
+
+def _imports(tree):
+    """(top-level module, lineno, at module level?) of every import."""
+    top = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            yield name.split(".")[0], node.lineno, id(node) in top
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for mod, line, module_level in _imports(tree):
+        assert mod not in FORBIDDEN, f"{path.name}:{line} imports {mod}"
+        if mod == "cv2":
+            assert not module_level, f"{path.name}:{line} imports cv2 at " \
+                "module level"
+
+
+def test_port_package_has_every_module():
+    names = {str(p.relative_to(REPO / "iif_torch")) for p in _port_files()
+             if "iif_torch" in p.parts}
+    for mod in ("device.py", "config.py", "ops/roi_align_ml.py",
+                "ops/nms.py", "ops/boxes.py", "ops/anchors.py",
+                "models/resnet.py", "detection/necks.py",
+                "detection/rpn.py", "detection/roi_extractor.py",
+                "detection/bbox_head.py", "detection/mask_head.py",
+                "detection/detector.py", "detection/convert.py",
+                "detection/losses.py", "detection/pipeline.py",
+                "detection/inference.py", "cli/serve.py"):
+        assert mod in names, mod
+    assert (REPO / "iif_torch" / "csrc" / "roi_align_ml.cu").is_file()
+
+
+def _needs_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+
+
+def test_entry_points_raise_without_cuda():
+    _needs_no_card()
+    from iif_torch.cli import serve
+    from iif_torch.device import resolve_device
+    from iif_torch.detection.inference import init_detector
+
+    cfg = str(REPO / "configs/iif/iif_r50_1x.py")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_detector(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main([cfg])
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrapper_raises_on_non_cpu_non_cuda():
+    from iif_torch.ops.roi_align_ml import roi_align_ml
+
+    feats = [torch.zeros(1, 4, 4, 2, device="meta")] * 4
+    with pytest.raises(ValueError, match="unsupported device"):
+        roi_align_ml(feats, torch.zeros(1, 5, device="meta"))
+
+
+def test_chip_smoke_fails_without_cuda():
+    """No card: exit code other than 0 and no result line."""
+    _needs_no_card()
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=str(REPO))
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

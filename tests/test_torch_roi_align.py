@@ -1,0 +1,146 @@
+"""Multi-level RoIAlign (kernel K1's plain version and the extractor that
+calls it) against the JAX package's ``SingleRoIExtractor(...,
+use_pallas="ml")``, which on the CPU runs ``_flat_gather``. The CUDA
+kernel itself runs only on the card (``cuda`` marker)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iif_torch.detection.roi_extractor import SingleRoIExtractor
+from iif_torch.ops.roi_align_ml import (
+    map_roi_levels,
+    roi_align_ml,
+    roi_align_ml_reference,
+)
+
+torch.set_num_threads(1)
+
+LVIS_LEVELS = [(200, 336), (100, 168), (50, 84), (25, 42)]
+SMALL_LEVELS = [(16, 24), (8, 12), (4, 6), (2, 3)]
+
+
+def make_rois(rng, r, canvas_hw, scale_range):
+    """RoIs as in tests/test_pallas_roi_align.py: log-uniform size and
+    aspect, the first four at aspect 8, 12, 1/8 and 16, clamped to the
+    canvas (so some touch its border), batch index 0 or 1."""
+    h, w = canvas_hw
+    centers = rng.rand(r, 2) * [w - 44, h - 20]
+    scale_px = np.exp(rng.uniform(np.log(scale_range[0]),
+                                  np.log(scale_range[1]), r))
+    aspect = np.exp(rng.uniform(np.log(0.25), np.log(4.0), r))
+    aspect[:4] = [8.0, 12.0, 1.0 / 8.0, 16.0]
+    w_px = scale_px * np.sqrt(aspect)
+    h_px = scale_px / np.sqrt(aspect)
+    x1 = np.clip(centers[:, 0] - w_px / 2, 0, w - 1)
+    y1 = np.clip(centers[:, 1] - h_px / 2, 0, h - 1)
+    x2 = np.clip(centers[:, 0] + w_px / 2, 0, w - 1)
+    y2 = np.clip(centers[:, 1] + h_px / 2, 0, h - 1)
+    bidx = rng.randint(0, 2, r)
+    bidx[:2] = 1
+    return np.stack([bidx, x1, y1, x2, y2], 1).astype(np.float32)
+
+
+def _jax_ml(feats, rois, o):
+    from iif_tpu.detection.roi_extractor import SingleRoIExtractor as JaxExt
+
+    return np.asarray(JaxExt((o, o), use_pallas="ml")(
+        [jnp.asarray(f) for f in feats], jnp.asarray(rois)))
+
+
+@pytest.mark.parametrize("o", [7, 14])
+def test_plain_matches_jax_small_canvas(o):
+    """atol 1e-5 in f32. Coordinates here stay below 24 cells, where one
+    ulp of a sample position is below 2e-6 cells."""
+    rng = np.random.RandomState(o)
+    feats = [rng.randn(2, h, w, 8).astype(np.float32)
+             for h, w in SMALL_LEVELS]
+    rois = make_rois(rng, 48, (64, 96), (4, 96))
+    got = roi_align_ml_reference([torch.from_numpy(f) for f in feats],
+                                 torch.from_numpy(rois), (o, o))
+    np.testing.assert_allclose(got.numpy(), _jax_ml(feats, rois, o),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("o", [7, 14])
+def test_plain_matches_jax_lvis_coordinates(o):
+    """The LVIS serving levels (800x1344 canvas, narrow C). atol 2e-4:
+    XLA on the CPU compiles the bin width into a multiply by 1/o and the
+    sample position into a fused multiply-add, while the port rounds a
+    true division and a separate multiply and add (the kernel's order).
+    At a coordinate of ~336 cells the two positions differ by an ulp
+    (3e-5 cells), times a neighbour difference of up to ~7 for randn
+    features, divided over 4 samples."""
+    rng = np.random.RandomState(10 + o)
+    feats = [rng.randn(2, h, w, 4).astype(np.float32)
+             for h, w in LVIS_LEVELS]
+    rois = make_rois(rng, 96, (800, 1344), (16, 512))
+    got = roi_align_ml_reference([torch.from_numpy(f) for f in feats],
+                                 torch.from_numpy(rois), (o, o))
+    np.testing.assert_allclose(got.numpy(), _jax_ml(feats, rois, o),
+                               atol=2e-4)
+
+
+def test_map_roi_levels_matches_jax():
+    from iif_tpu.detection.roi_extractor import map_roi_levels as jax_map
+
+    rng = np.random.RandomState(3)
+    rois = make_rois(rng, 512, (800, 1344), (8, 1024))
+    got = map_roi_levels(torch.from_numpy(rois), 4).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_map(
+        jnp.asarray(rois), 4)))
+    assert set(got.tolist()) == {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("o,sampling_ratio", [(7, 0), (14, 0), (7, 3)])
+def test_extractor_routes_return_feature_dtype(dtype, o, sampling_ratio):
+    """The extractor's one route casts to the feature dtype (the JAX ml
+    path's ``.astype(feats[0].dtype)``) and, on the CPU, is the plain
+    version bit for bit at its output size and sampling ratio."""
+    rng = np.random.RandomState(5)
+    feats = [torch.from_numpy(rng.randn(2, h, w, 8).astype(np.float32))
+             .to(dtype) for h, w in SMALL_LEVELS]
+    rois = torch.from_numpy(make_rois(rng, 16, (64, 96), (4, 96)))
+    got = SingleRoIExtractor((o, o), sampling_ratio=sampling_ratio)(
+        feats, rois)
+    assert got.dtype == dtype and got.shape == (16, o, o, 8)
+    want = roi_align_ml_reference(feats, rois, (o, o),
+                                  sampling_ratio=sampling_ratio).to(dtype)
+    assert torch.equal(got, want)
+
+
+def test_wrapper_cpu_is_plain_version():
+    rng = np.random.RandomState(6)
+    feats = [torch.from_numpy(rng.randn(2, h, w, 8).astype(np.float32))
+             for h, w in SMALL_LEVELS]
+    rois = torch.from_numpy(make_rois(rng, 16, (64, 96), (4, 96)))
+    before = dict(roi_align_ml.launches_by_size)
+    got = roi_align_ml(feats, rois, (14, 14))
+    assert torch.equal(got, roi_align_ml_reference(feats, rois, (14, 14)))
+    assert roi_align_ml.launches_by_size == before  # no kernel on the CPU
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o,r", [(7, 2000), (14, 600)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_on_card(o, r, dtype):
+    """K1 on the card against its plain version at the LVIS serving
+    shapes: f32 to 1e-5 (sum order only); bf16 within one bf16 ulp of the
+    value after the cast."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.RandomState(o)
+    feats = [torch.from_numpy(rng.randn(2, h, w, 256).astype(np.float32))
+             .to("cuda", dtype) for h, w in LVIS_LEVELS]
+    rois = torch.from_numpy(make_rois(rng, r, (800, 1344), (16, 512))).cuda()
+    got = roi_align_ml(feats, rois, (o, o)).float()
+    torch.cuda.synchronize()
+    want = roi_align_ml_reference(feats, rois, (o, o))
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        cast = want.to(dtype).float()
+        ulp = torch.pow(2.0, torch.floor(torch.log2(cast.abs().clamp(
+            min=2.0 ** -126))) - 7)
+        assert bool(((got - cast).abs() <= ulp).all())
