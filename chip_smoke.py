@@ -4,11 +4,16 @@
     python3 chip_smoke.py
 
 1. Environment: the card's name and power limit, the torch and CUDA
-   versions, and the build of every kernel from ``iif_torch/csrc``.
-2. Kernel phase: the multi-level RoIAlign kernel against its plain PyTorch
-   version at the LVIS serving shapes (levels 200x336 .. 25x42, B=2,
-   C=256; 7x7 with R=2000 and 14x14 with R=600; f32 and bf16), with the
-   error, time, plain-version time and the HBM bound.
+   versions, the TF32 switches (both off for every timing), and the build
+   of every kernel from ``iif_torch/csrc``.
+2. Kernel phase: the multi-level RoIAlign forward K1 against its plain
+   PyTorch version at the LVIS serving shapes (levels 200x336 .. 25x42,
+   B=2, C=256; 7x7 with R=2000 and 14x14 with R=600; f32 and bf16), with
+   the error, time, plain-version time and the HBM bound; then at the
+   training shapes (B=4; 7x7 with R=2048 and 14x14 with R=512; heavily
+   overlapping RoIs and the aspect 8/12/1/8/16 ones; f32 and bf16) K1
+   again and its backward K2, through ``RoIAlignML.backward`` as autograd
+   runs it, against the plain backward, likewise.
 3. Serving phase: IIF MaskRCNN R50-FPN with 1203 LVIS classes, bf16 trunk,
    seeded random weights and IIF weights from seeded long-tailed counts,
    serving 40 seeded images through ``inference_detector`` (b1) and
@@ -20,12 +25,23 @@
 4. Profile phase: one b1 request's unprofiled wall time, each stage's
    wall time with the device drained at its ends, and under
    ``torch.profiler`` each stage's kernel time and the device's busy share.
-5. The ``kernels`` JSON line, then the device line as the last line.
+5. Training phase: the trainer of the same config (SGD lr 0.02 with 500
+   warm-up iterations, frozen stem and stage 1, ``norm_eval``,
+   ``rpn_nms_pre=2000``, masks at stride 2) from ``trainer_from_config``,
+   seeded random weights, on a seeded synthetic batch of 4 uint8 800x1344
+   canvases with 100 gt slots (about 30% valid) and bit-packed masks at
+   400x672: 3 warm-up steps and TRAIN_STEPS timed ones (ms/step and
+   img/s, median and spread), every step's losses, K1's and K2's launches
+   counted from 0 over those steps, NMS host syncs a step, the moved and
+   the frozen parameters; then each stage's wall time with the device drained at its ends and
+   its kernel time, and the device's busy share over the unprofiled step.
+6. The ``kernels`` JSON line, then the device line as the last line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or the
 ``iif_torch`` package is not beside this file; any failed check raises.
 """
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -43,10 +59,20 @@ CANVAS = (800, 1344)
 NUM_CLASSES = 1203
 LVIS_IMAGES = 100170               # N of the detection IIF weights
 SOURCE = "iif_torch/csrc/roi_align_ml.cu"
-REPLACES = "iif_tpu/ops/pallas/roi_align_kernel.py:725"
+REPLACES = {"K1": "iif_tpu/ops/pallas/roi_align_kernel.py:725",
+            "K2": "iif_tpu/ops/pallas/roi_align_kernel.py:769"}
 F32_TOL = 1e-5
+# K2 adds with atomics in an order that changes from run to run: f32
+# within GRAD_REL_TOL of the largest magnitude; bf16 besides within 2^-8
+# of each value (one rounding of an f32 sum that may differ in its last
+# bits)
+GRAD_REL_TOL = 1e-5
 CLS_REL_TOL = 1e-2
 REQUESTS = 40                      # timed images per serving path
+TRAIN_BATCH = 4                    # samples_per_gpu of the LVIS config
+TRAIN_GT = 100                     # gt slots an image (pipeline max_gt)
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 10                   # timed training steps
 
 
 def log(*args):
@@ -116,10 +142,9 @@ def make_rois(rng, r, device):
                         dtype=torch.float32, device=device)
 
 
-def roi_align_bound(feats, rois, o, s=2):
-    """Least time for this RoIAlign call on the card: the larger of (unique
-    feature rows that this run's samples touch + rois + output) over HBM
-    bandwidth, and its f32 FLOPs over the non-tensor-core f32 peak."""
+def touched_rows(feats, rois, o, s=2):
+    """Unique (image, level, y, x) feature rows that this run's bilinear
+    corners touch."""
     import torch
 
     from iif_torch.ops.roi_align_ml import map_roi_levels
@@ -147,19 +172,77 @@ def roi_align_bound(feats, rois, o, s=2):
     idx = (base[:, None, None, None, None]
            + ys[:, :, :, None, None] * ws[:, None, None, None, None]
            + xs[:, None, None, :, :])
-    touched = torch.unique(idx.reshape(-1)).numel()
-    r = rois.shape[0]
-    nbytes = touched * c * item + r * 5 * 4 + r * o * o * c * item
-    flops = r * o * o * c * s * s * 12
+    return torch.unique(idx.reshape(-1)).numel()
+
+
+def _bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", touched)
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def roi_align_bound(feats, rois, o, s=2):
+    """Least time for K1's call on the card: the larger of (unique feature
+    rows that this run's samples touch + rois + output) over HBM
+    bandwidth, and its f32 FLOPs over the non-tensor-core f32 peak."""
+    c, item = feats[0].shape[-1], feats[0].element_size()
+    touched = touched_rows(feats, rois, o, s)
+    r = rois.shape[0]
+    nbytes = touched * c * item + r * 5 * 4 + r * o * o * c * item
+    return _bound(nbytes, r * o * o * c * s * s * 12) + (touched,)
+
+
+def roi_align_grad_bound(feats, rois, o, s=2):
+    """Least time for K2's call: g read once, the touched rows' f32
+    accumulators read and written once, and the levels' gradient written
+    once in the feature dtype, over HBM bandwidth; or its f32 FLOPs (as
+    K1's) over the f32 peak."""
+    c, item = feats[0].shape[-1], feats[0].element_size()
+    touched = touched_rows(feats, rois, o, s)
+    r = rois.shape[0]
+    numel = sum(f.numel() for f in feats)
+    nbytes = (r * o * o * c * item + r * 5 * 4 + touched * c * 4 * 2
+              + numel * item)
+    return _bound(nbytes, r * o * o * c * s * s * 12) + (touched,)
+
+
+def k1_row(torch, feats32, rois, o, dt):
+    """K1 against its plain version on one set of inputs, in ``dt``: the
+    error, K1's time, the plain version's and the bound."""
+    from iif_torch.ops.roi_align_ml import roi_align_ml, roi_align_ml_reference
+
+    feats = [f.to(dt) for f in feats32]
+    got = roi_align_ml(feats, rois, (o, o))
+    torch.cuda.synchronize()
+    want = roi_align_ml_reference(feats, rois, (o, o))
+    err = (got.float() - want.to(dt).float()).abs().max().item()
+    if dt == torch.float32:
+        ok = err <= F32_TOL
+        tol = F32_TOL
+        ulps = None
+    else:
+        cast = want.to(dt).float()
+        ulps = ((got.float() - cast).abs() / bf16_ulp(cast)).max().item()
+        ok = ulps <= 1.0
+        tol = "1 bf16 ulp of the value"
+    ms = cuda_ms(lambda: roi_align_ml(feats, rois, (o, o)))
+    plain_ms = cuda_ms(lambda: roi_align_ml_reference(
+        feats, rois, (o, o)).to(dt))
+    bound_ms, bound_by, touched = roi_align_bound(feats, rois, o)
+    row = {"o": o, "R": rois.shape[0], "B": feats[0].shape[0],
+           "dtype": str(dt).split(".")[-1],
+           "max_abs_err": err, "max_err_ulps": ulps,
+           "tolerance": tol, "ok": ok, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "touched_feature_rows": touched}
+    log("kernel K1", json.dumps(row))
+    if not ok:
+        raise RuntimeError(f"roi_align_ml disagrees: {row}")
+    return row
 
 
 def kernel_phase(torch, np):
-    from iif_torch.ops.roi_align_ml import roi_align_ml, roi_align_ml_reference
-
+    """K1 against its plain version at the serving shapes (B=2)."""
     rng = np.random.RandomState(0)
     feats32 = [torch.tensor(rng.randn(2, h, w, 256), dtype=torch.float32,
                             device="cuda") for h, w in LVIS_LEVELS]
@@ -167,35 +250,91 @@ def kernel_phase(torch, np):
     for o, r in ((7, 2000), (14, 600)):
         rois = make_rois(rng, r, "cuda")
         for dt in (torch.float32, torch.bfloat16):
-            feats = [f.to(dt) for f in feats32]
-            got = roi_align_ml(feats, rois, (o, o))
-            torch.cuda.synchronize()
-            want = roi_align_ml_reference(feats, rois, (o, o))
-            err = (got.float() - want.to(dt).float()).abs().max().item()
-            if dt == torch.float32:
-                ok = err <= F32_TOL
-                tol = F32_TOL
-                ulps = None
-            else:
-                cast = want.to(dt).float()
-                ulps = ((got.float() - cast).abs()
-                        / bf16_ulp(cast)).max().item()
-                ok = ulps <= 1.0
-                tol = "1 bf16 ulp of the value"
-            ms = cuda_ms(lambda: roi_align_ml(feats, rois, (o, o)))
-            plain_ms = cuda_ms(lambda: roi_align_ml_reference(
-                feats, rois, (o, o)).to(dt))
-            bound_ms, bound_by, touched = roi_align_bound(feats, rois, o)
-            row = {"o": o, "R": r, "dtype": str(dt).split(".")[-1],
-                   "max_abs_err": err, "max_err_ulps": ulps,
-                   "tolerance": tol, "ok": ok, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "touched_feature_rows": touched}
-            log("kernel", json.dumps(row))
-            if not ok:
-                raise RuntimeError(f"roi_align_ml disagrees: {row}")
+            row = k1_row(torch, feats32, rois, o, dt)
             results[(o, row["dtype"])] = row
     return results
+
+
+def make_train_rois(rng, r, device):
+    """K1's RoIs (aspect 8, 12, 1/8 and 16 among them) over 4 images, half
+    of them piled on 8 spots (centres within 8 px, 64-256 px wide), so
+    that many RoIs add into the same cells."""
+    import numpy as np
+    import torch
+
+    rois = make_rois(rng, r, "cpu").numpy()
+    rois[:, 0] = rng.randint(0, TRAIN_BATCH, r)
+    spots = rng.rand(8, 2) * [1000, 500] + [150, 150]
+    pile = np.arange(4, r, 2)
+    c = spots[rng.randint(0, 8, pile.size)] + rng.uniform(-8, 8,
+                                                          (pile.size, 2))
+    half = rng.uniform(32, 128, (pile.size, 2))
+    rois[pile, 1:3] = c - half
+    rois[pile, 3:5] = c + half
+    return torch.tensor(rois, dtype=torch.float32, device=device)
+
+
+def kernel_train_phase(torch, np):
+    """At the training shapes (B=4): K1 against its plain version, and K2,
+    through ``RoIAlignML.backward`` as autograd runs it in a training
+    step, against the plain backward."""
+    from iif_torch.ops.roi_align_ml import (
+        roi_align_ml,
+        roi_align_ml_grad_reference,
+    )
+
+    rng = np.random.RandomState(3)
+    feats32 = [torch.tensor(rng.randn(TRAIN_BATCH, h, w, 256),
+                            dtype=torch.float32, device="cuda")
+               for h, w in LVIS_LEVELS]
+    k1, k2 = {}, {}
+    for o, r in ((7, 512 * TRAIN_BATCH), (14, 128 * TRAIN_BATCH)):
+        rois = make_train_rois(rng, r, "cuda")
+        g32 = torch.tensor(rng.randn(r, o, o, 256), dtype=torch.float32,
+                           device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            row = k1_row(torch, feats32, rois, o, dt)
+            k1[(o, row["dtype"])] = row
+            feats = [f.to(dt).requires_grad_() for f in feats32]
+            g = g32.to(dt)
+            out = roi_align_ml(feats, rois, (o, o))
+
+            def k2_call():
+                return torch.autograd.grad(out, feats, g, retain_graph=True)
+
+            got = k2_call()
+            torch.cuda.synchronize()
+            want = roi_align_ml_grad_reference(feats32, rois, g.float(),
+                                               (o, o))
+            scale = max(w.abs().max().item() for w in want)
+            err, excess = 0.0, 0.0
+            for a, w in zip(got, want):
+                d = (a.float() - w).abs()
+                bound = GRAD_REL_TOL * scale
+                if dt == torch.bfloat16:
+                    bound = bound + 2.0 ** -8 * w.abs()
+                err = max(err, d.max().item())
+                excess = max(excess, (d - bound).max().item())
+            ms = cuda_ms(k2_call)
+            plain_ms = cuda_ms(lambda: roi_align_ml_grad_reference(
+                feats, rois, g, (o, o)), iters=1, reps=5)
+            bound_ms, bound_by, touched = roi_align_grad_bound(feats, rois,
+                                                               o)
+            row = {"o": o, "R": r, "B": TRAIN_BATCH,
+                   "dtype": str(dt).split(".")[-1],
+                   "max_abs_err": err, "max_grad": scale,
+                   "tolerance": (f"{GRAD_REL_TOL} x max |grad|"
+                                 + (" + 2^-8 x |value|"
+                                    if dt == torch.bfloat16 else "")),
+                   "ok": excess <= 0.0, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "touched_feature_rows": touched}
+            log("kernel K2", json.dumps(row))
+            if not row["ok"]:
+                raise RuntimeError(f"K2 disagrees with its plain version: "
+                                   f"{row}")
+            k2[(o, row["dtype"])] = row
+    return k1, k2
 
 
 def write_lvis_annotations(np, path):
@@ -230,6 +369,7 @@ def serving_phase(torch, np):
     from iif_torch.detection.roi_extractor import SingleRoIExtractor
     from iif_torch.ops.nms import nms
     from iif_torch.ops.roi_align_ml import (
+        grad_launches_by_size,
         reset_launches,
         roi_align_ml,
         roi_align_ml_reference,
@@ -272,6 +412,8 @@ def serving_phase(torch, np):
                                           masks=False))
         b1_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {"b1": dict(roi_align_ml.launches_by_size)}
+    check(not grad_launches_by_size,
+          "serving launches K1 alone, no K2")
     b1_syncs = nms.host_syncs / REQUESTS
     # b2 path: REQUESTS images in full batches of 2, per image
     reset_launches()
@@ -453,6 +595,197 @@ def profile_phase(torch, det, image):
             "top_kernels": [(k[:70], t, c) for k, (t, c) in top]}
 
 
+TRAIN_STAGES = ("backbone_fpn", "rpn_loss", "rpn_proposals", "bbox_targets",
+                "bbox_roi_align", "bbox_head_loss", "mask_targets",
+                "mask_roi_align", "mask_head_loss", "backward", "optimizer")
+
+
+def synthetic_train_batch(np, torch, device):
+    """A b4 batch shaped like ``bench.py``'s detection batch: uint8
+    canvases, TRAIN_GT gt slots an image with about 30% valid, boxes 20 to
+    100 px, 1203-way labels, masks at half resolution bit-packed on the
+    last axis."""
+    b, (h, w), g = TRAIN_BATCH, CANVAS, TRAIN_GT
+    rng = np.random.RandomState(0)
+    gt_boxes = np.zeros((b, g, 4), np.float32)
+    gt_boxes[..., 0] = rng.uniform(0, w - 100, (b, g))
+    gt_boxes[..., 1] = rng.uniform(0, h - 100, (b, g))
+    gt_boxes[..., 2] = gt_boxes[..., 0] + rng.uniform(20, 100, (b, g))
+    gt_boxes[..., 3] = gt_boxes[..., 1] + rng.uniform(20, 100, (b, g))
+    batch = {
+        "image": rng.randint(0, 256, (b, h, w, 3), np.uint8),
+        "gt_boxes": gt_boxes,
+        "gt_labels": rng.randint(0, NUM_CLASSES, (b, g)).astype(np.int64),
+        "gt_valid": rng.rand(b, g) < 0.3,
+        "gt_masks_packed": np.packbits(
+            (rng.rand(b, g, h // 2, w // 2) < 0.1).astype(np.uint8),
+            axis=-1),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def training_phase(torch, np):
+    """The trainer of the headline config for TRAIN_WARMUP + TRAIN_STEPS
+    steps at b4, its launches and checks, then its stages."""
+    import contextlib
+
+    import iif_torch.detection.detector as detector_mod
+    import iif_torch.engine.detection as engine_mod
+    from iif_torch.config import Config
+    from iif_torch.detection.datasets import build_dataset
+    from iif_torch.detection.inference import build_loss_cls
+    from iif_torch.detection.losses import compute_det_iif_from_counts
+    from iif_torch.engine.detection import trainer_from_config
+    from iif_torch.ops.nms import nms
+    from iif_torch.ops.roi_align_ml import (
+        grad_launches_by_size,
+        reset_launches,
+        roi_align_ml,
+    )
+
+    cfg = Config.fromfile(str(REPO / "configs/iif/iif_r50_1x.py"))
+    ann = BUILD / "lvis_v1_synthetic.json"
+    counts = write_lvis_annotations(np, ann)
+    cfg.data["train"]["ann_file"] = str(ann)
+    train_ds = build_dataset({k: v for k, v in cfg.data["train"].items()
+                              if k != "oversample_thr"})
+    loss_cls = build_loss_cls(cfg.loss_cls, train_ds, NUM_CLASSES)
+    check(np.array_equal(np.asarray(loss_cls.weights),
+                         compute_det_iif_from_counts(counts, LVIS_IMAGES)),
+          "IIF weights from the counts")
+    t0 = time.time()
+    trainer = trainer_from_config(
+        cfg, loss_cls, LVIS_IMAGES // cfg.data["samples_per_gpu"],
+        device="cuda")
+    log(f"trainer_from_config s {time.time() - t0:.3f}")
+    model, tcfg = trainer.model, trainer.train_cfg
+    check(model.num_classes == NUM_CLASSES, "1203 classes")
+    check(model.backbone.compute_dtype == torch.bfloat16, "bf16 trunk")
+    check(model.backbone.frozen_stages == 1 and model.backbone.norm_eval,
+          "frozen_stages=1, norm_eval")
+    check(tcfg.rpn_nms_pre == 2000 and tcfg.mask_gt_stride == 2,
+          "train_cfg rpn_nms_pre=2000, mask_gt_stride=2")
+    check(cfg.data["samples_per_gpu"] == TRAIN_BATCH, "samples_per_gpu=4")
+    state = trainer.init_state()
+    opt = state.optimizer.param_groups[0]
+    check(opt["momentum"] == 0.9 and opt["weight_decay"] == 1e-4
+          and abs(opt["lr"] / (0.02 / 1000) - 1) < 1e-6
+          and abs(trainer.lr_schedule(500) / 0.02 - 1) < 1e-6,
+          "SGD 0.02, momentum 0.9, wd 1e-4, 500 warm-up steps from 1/1000")
+    batch = synthetic_train_batch(np, torch, "cuda")
+    params = dict(model.named_parameters())
+    watch = {n: params[n].detach().clone() for n in (
+        "backbone.layer1.0.conv1.weight", "backbone.layer2.0.conv1.weight",
+        "roi_head.bbox_head.fc_cls.weight",
+        "roi_head.mask_head.conv_logits.weight")}
+
+    # the training path: K1 and K2 counted from 0 over all its steps
+    torch.cuda.synchronize()
+    reset_launches()
+    nms.host_syncs = 0
+    step_ms, metrics = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    launches = {"K1": dict(roi_align_ml.launches_by_size),
+                "K2": dict(grad_launches_by_size)}
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    syncs = nms.host_syncs / n_steps
+    losses = [{k: v.item() for k, v in m.items()} for m in metrics]
+    for i, row in enumerate(losses):
+        log(f"train step {i}", json.dumps(row))
+        for k, v in row.items():
+            check(math.isfinite(v), f"finite {k} at step {i}")
+    log("training path launches", json.dumps(launches))
+    for k, counts_k in launches.items():
+        if counts_k != {7: n_steps, 14: n_steps}:
+            raise RuntimeError(f"{k} not launched once a size a step on the "
+                               f"training path: {counts_k}")
+    moved = {n: (params[n].detach() - v).abs().max().item()
+             for n, v in watch.items()}
+    log("parameter change", json.dumps(moved))
+    check(moved["backbone.layer1.0.conv1.weight"] == 0.0,
+          "frozen stage-1 weight unchanged")
+    check(all(v > 0 for n, v in moved.items() if "layer1" not in n),
+          "trainable parameters moved")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    result = {"steps": n_steps, "step_ms": spread(step_ms),
+              "img_per_s": TRAIN_BATCH * 1e3 / statistics.median(step_ms),
+              "first_loss": losses[0]["loss"], "last_loss": losses[-1]["loss"],
+              "launches": launches, "nms_host_syncs_per_step": syncs,
+              "peak_allocated_gib": peak_gb}
+
+    # stages: each span synchronised at its ends; its wall time on the
+    # host clock over 2 steps, then one step under torch.profiler, where
+    # the kernels that ran inside a span's window are the stage's
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    walls = {k: [] for k in TRAIN_STAGES}
+
+    @contextlib.contextmanager
+    def synced_span(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function(name):
+            yield
+            torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+
+    originals = (detector_mod.record_function, engine_mod.record_function)
+    detector_mod.record_function = engine_mod.record_function = synced_span
+    try:
+        for _ in range(2):
+            state, _ = trainer.train_step(state, batch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        detector_mod.record_function, engine_mod.record_function = originals
+    windows, kernels = [], []
+    for e in prof.events():
+        if e.name in walls and e.device_type == DeviceType.CPU:
+            windows.append((e.time_range.start, e.time_range.end, e.name))
+        elif (e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)):
+            kernels.append((e.time_range.start, e.time_range.end, e.name))
+    stages = {k: {"synced_wall_ms": statistics.median(v[:2]),
+                  "kernel_ms": 0.0} for k, v in walls.items()}
+    by_kernel = {}
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi, name in sorted(kernels):
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+        t, c = by_kernel.get(name, (0.0, 0))
+        by_kernel[name] = (t + (hi - lo) / 1e3, c + 1)
+        for wlo, whi, stage in windows:
+            if wlo <= lo < whi:
+                stages[stage]["kernel_ms"] += (hi - lo) / 1e3
+                break
+    step_median = statistics.median(step_ms)
+    result["profile"] = {
+        "stages": stages,
+        "stage_wall_sum_ms": sum(v["synced_wall_ms"]
+                                 for v in stages.values()),
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / 1e3 / step_median,
+        "roi_align_kernels": {
+            label: [sum(t for k, (t, _) in by_kernel.items() if part in k),
+                    sum(c for k, (_, c) in by_kernel.items() if part in k)]
+            for label, part in (("K1", "roi_align_ml_fwd_kernel"),
+                                ("K2", "roi_align_ml_bwd_kernel"),
+                                ("K2 cast", "cast_f32_bf16_kernel"))},
+        "top_kernels": [(k[:70], t, c) for k, (t, c) in sorted(
+            by_kernel.items(), key=lambda kv: -kv[1][0])[:12]]}
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -470,6 +803,8 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    log("tf32: cudnn", torch.backends.cudnn.allow_tf32, "matmul",
+        torch.backends.cuda.matmul.allow_tf32, "(every timing below)")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -486,32 +821,55 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     kern = kernel_phase(torch, np)
+    kern_train, kern_grad = kernel_train_phase(torch, np)
     serve = serving_phase(torch, np)
     log("serving", json.dumps({k: v for k, v in serve.items()
                                if k not in ("detector", "image")}),
         "card", card)
     prof = profile_phase(torch, serve.pop("detector"), serve.pop("image"))
     log("profile b1", json.dumps(prof))
+    train = training_phase(torch, np)
+    log("training", json.dumps(train), "card", card)
 
+    # one entry per kernel, output size and path shape: K1 at the serving
+    # shapes with the serving paths' launches, K1 and K2 at the training
+    # shapes with the training path's
     kernels = []
+    k1_paths = [(kern, "", serve["launches"]),
+                (kern_train, "_train", {"train": train["launches"]["K1"]})]
+    for rows, suffix, paths in k1_paths:
+        for o in (7, 14):
+            row = rows[(o, "bfloat16")]
+            kernels.append({
+                "name": f"roi_align_ml_{o}x{o}{suffix}", "route": "cuda",
+                "source": SOURCE, "replaces": REPLACES["K1"],
+                "launches": sum(c.get(o, 0) for c in paths.values()),
+                "launches_by_path": {p: c.get(o, 0)
+                                     for p, c in paths.items()},
+                "max_abs_err": row["max_abs_err"],
+                "max_err_ulps": row["max_err_ulps"],
+                "tolerance": row["tolerance"],
+                "f32_max_abs_err": rows[(o, "float32")]["max_abs_err"],
+                "f32_tolerance": F32_TOL,
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None,
+                "shape": f"R={row['R']} bf16 LVIS levels B={row['B']} "
+                         "C=256"})
     for o in (7, 14):
-        row = kern[(o, "bfloat16")]
+        row = kern_grad[(o, "bfloat16")]
         kernels.append({
-            "name": f"roi_align_ml_{o}x{o}", "route": "cuda",
-            "source": SOURCE, "replaces": REPLACES,
-            "launches": sum(c.get(o, 0)
-                            for c in serve["launches"].values()),
-            "launches_by_path": {p: c.get(o, 0)
-                                 for p, c in serve["launches"].items()},
+            "name": f"roi_align_ml_grad_{o}x{o}", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES["K2"],
+            "launches": train["launches"]["K2"].get(o, 0),
+            "launches_by_path": {"train": train["launches"]["K2"].get(o, 0)},
             "max_abs_err": row["max_abs_err"],
-            "max_err_ulps": row["max_err_ulps"],
             "tolerance": row["tolerance"],
-            "f32_max_abs_err": kern[(o, "float32")]["max_abs_err"],
-            "f32_tolerance": F32_TOL,
+            "f32_max_abs_err": kern_grad[(o, "float32")]["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None,
-            "shape": f"R={row['R']} bf16 LVIS levels B=2 C=256"})
+            "shape": f"R={row['R']} bf16 LVIS levels B={row['B']} C=256"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

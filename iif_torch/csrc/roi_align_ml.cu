@@ -1,10 +1,18 @@
-// Multi-level aligned RoIAlign forward for Hopper (sm_90a).
+// Multi-level aligned RoIAlign, forward (K1) and backward (K2), for Hopper
+// (sm_90a).
 //
-// Replaces iif_tpu/ops/pallas/roi_align_kernel.py::roi_align_pallas_ml
+// K1 replaces iif_tpu/ops/pallas/roi_align_kernel.py::roi_align_pallas_ml
 // (the Pallas TPU kernel _make_ml_kernel / _pallas_ml_call). It computes
 // what SingleRoIExtractor._flat_gather computes
 // (iif_tpu/detection/roi_extractor.py:97-166), none of the TPU machinery:
 // no DMA windows, no edge padding, no one-hot matmuls, no misfit cap.
+//
+// K2 replaces the custom VJP's backward (_ml_bwd, _pallas_ml_bwd_call,
+// _make_ml_bwd_kernel): the gradient of K1 with respect to the four
+// levels, none for the RoIs. Each bin's incoming gradient, divided by
+// s*s, is spread over its samples' four bilinear corners with exactly
+// K1's sample positions, clamps and high-corner snap. On the card no RoI
+// misfits a window, so every RoI takes the kernel.
 //
 // Layout: every FPN level is a contiguous (B, H_l, W_l, C) tensor, so one
 // bilinear corner is a contiguous row of C values. A block owns one
@@ -158,6 +166,102 @@ __global__ void roi_align_ml_fwd_kernel(Levels lv,
   }
 }
 
+// K2. Same grid and sample geometry as K1; each corner's share goes into
+// an f32 accumulator shaped like its level with atomicAdd, so overlapping
+// RoIs (and neighbouring samples of one RoI) add up in an order that
+// changes from run to run. Bound: the f32 read-modify-write of the
+// touched accumulator rows and the read of g; the atomics resolve in L2.
+template <typename T>
+__global__ void roi_align_ml_bwd_kernel(Levels acc,
+                                        const float* __restrict__ rois,
+                                        const int* __restrict__ lvl,
+                                        const int* __restrict__ bidx,
+                                        const T* __restrict__ grad,
+                                        int channels, int out_size,
+                                        int samples) {
+  __shared__ Tap ytap[kMaxTaps];
+  __shared__ Tap xtap[kMaxTaps];
+
+  const int r = blockIdx.x;
+  const int ph = blockIdx.y;
+  const int l = lvl[r];
+  const int height = pick(acc.h, l);
+  const int width = pick(acc.w, l);
+  const float scale = 1.0f / pick(acc.stride, l);
+  const float* roi = rois + (size_t)r * 5;
+  const float x1 = roi[1] * scale - 0.5f;
+  const float y1 = roi[2] * scale - 0.5f;
+  const float x2 = roi[3] * scale - 0.5f;
+  const float y2 = roi[4] * scale - 0.5f;
+  const float bin_w = (x2 - x1) / (float)out_size;
+  const float bin_h = (y2 - y1) / (float)out_size;
+  const int taps_x = out_size * samples;
+
+  for (int t = threadIdx.x; t < taps_x; t += blockDim.x) {
+    xtap[t] = make_tap(x1, bin_w, t, samples, (float)(width - 1));
+  }
+  for (int t = threadIdx.x; t < samples; t += blockDim.x) {
+    ytap[t] = make_tap(y1, bin_h, ph * samples + t, samples,
+                       (float)(height - 1));
+  }
+  __syncthreads();
+
+  float* dst = static_cast<float*>(const_cast<void*>(pick(acc.ptr, l))) +
+               (size_t)bidx[r] * height * width * channels;
+  const T* src = grad + ((size_t)r * out_size + ph) * out_size * channels;
+  const float count = (float)(samples * samples);
+
+  for (int c = 2 * threadIdx.x; c < channels; c += 2 * blockDim.x) {
+    for (int pw = 0; pw < out_size; ++pw) {
+      const float2 gv = Pair<T>::load(src + (size_t)pw * channels + c);
+      const float g0 = gv.x / count;
+      const float g1 = gv.y / count;
+      for (int iy = 0; iy < samples; ++iy) {
+        const Tap ty = ytap[iy];
+        const float wy1 = ty.frac;
+        const float wy0 = 1.0f - wy1;
+        float* row0 = dst + (size_t)ty.lo * width * channels + c;
+        float* row1 = dst + (size_t)ty.hi * width * channels + c;
+        for (int ix = 0; ix < samples; ++ix) {
+          const Tap tx = xtap[pw * samples + ix];
+          const float wx1 = tx.frac;
+          const float wx0 = 1.0f - wx1;
+          float* p00 = row0 + (size_t)tx.lo * channels;
+          float* p01 = row0 + (size_t)tx.hi * channels;
+          float* p10 = row1 + (size_t)tx.lo * channels;
+          float* p11 = row1 + (size_t)tx.hi * channels;
+          // (g * wx) * wy: the plain version's autograd order
+          atomicAdd(p00, g0 * wx0 * wy0);
+          atomicAdd(p00 + 1, g1 * wx0 * wy0);
+          atomicAdd(p01, g0 * wx1 * wy0);
+          atomicAdd(p01 + 1, g1 * wx1 * wy0);
+          atomicAdd(p10, g0 * wx0 * wy1);
+          atomicAdd(p10 + 1, g1 * wx0 * wy1);
+          atomicAdd(p11, g0 * wx1 * wy1);
+          atomicAdd(p11 + 1, g1 * wx1 * wy1);
+        }
+      }
+    }
+  }
+}
+
+// The f32 accumulators rounded once into the bf16 gradient, two values a
+// thread.
+__global__ void cast_f32_bf16_kernel(const float* __restrict__ src,
+                                     __nv_bfloat16* __restrict__ dst,
+                                     size_t pairs) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < pairs;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float2 v = reinterpret_cast<const float2*>(src)[i];
+    reinterpret_cast<__nv_bfloat162*>(dst)[i] = __floats2bfloat162_rn(v.x, v.y);
+  }
+}
+
+int block_threads(int channels) {
+  int threads = ((channels / 2 + 31) / 32) * 32;
+  return threads > 256 ? 256 : threads;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
@@ -183,8 +287,7 @@ extern "C" int iif_roi_align_ml_fwd(
     lv.w[i] = ws[i];
     lv.stride[i] = ss[i];
   }
-  int threads = ((channels / 2 + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
+  const int threads = block_threads(channels);
   const dim3 grid(num_rois, out_size);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -197,4 +300,64 @@ extern "C" int iif_roi_align_ml_fwd(
         out_size, samples);
   }
   return (int)cudaGetLastError();
+}
+
+// K2. acc: one f32 buffer holding the four levels' accumulators back to
+// back, each (B, H_l, W_l, C), levels starting at element offsets o0..o3;
+// it is zeroed here. grad: (R, out, out, C) in the feature type. For
+// bfloat16 the result is cast into out (same layout as acc); for float32
+// acc is the result and out is unused. Returns the first cudaError_t.
+extern "C" int iif_roi_align_ml_bwd(
+    void* acc, void* out, long long total, long long o0, long long o1,
+    long long o2, long long o3, int h0, int w0, int h1, int w1, int h2,
+    int w2, int h3, int w3, float s0, float s1, float s2, float s3,
+    const float* rois, const int* lvl, const int* bidx, const void* grad,
+    int num_rois, int channels, int out_size, int samples, int dtype,
+    void* stream) {
+  if (out_size * samples > kMaxTaps || (channels & 1) || (total & 1) ||
+      dtype < 0 || dtype > 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* base = static_cast<float*>(acc);
+  cudaError_t err = cudaMemsetAsync(base, 0, (size_t)total * sizeof(float),
+                                    st);
+  if (err != cudaSuccess) return (int)err;
+  Levels lv;
+  const long long offs[kMaxLevels] = {o0, o1, o2, o3};
+  const int hs[kMaxLevels] = {h0, h1, h2, h3};
+  const int ws[kMaxLevels] = {w0, w1, w2, w3};
+  const float ss[kMaxLevels] = {s0, s1, s2, s3};
+  for (int i = 0; i < kMaxLevels; ++i) {
+    lv.ptr[i] = base + offs[i];
+    lv.h[i] = hs[i];
+    lv.w[i] = ws[i];
+    lv.stride[i] = ss[i];
+  }
+  if (num_rois > 0) {
+    const dim3 grid(num_rois, out_size);
+    const int threads = block_threads(channels);
+    if (dtype == 0) {
+      roi_align_ml_bwd_kernel<float><<<grid, threads, 0, st>>>(
+          lv, rois, lvl, bidx, static_cast<const float*>(grad), channels,
+          out_size, samples);
+    } else {
+      roi_align_ml_bwd_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
+          lv, rois, lvl, bidx, static_cast<const __nv_bfloat16*>(grad),
+          channels, out_size, samples);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (dtype == 1) {
+    const size_t pairs = (size_t)total / 2;
+    const int threads = 256;
+    size_t blocks = (pairs + threads - 1) / threads;
+    if (blocks > 132 * 16) blocks = 132 * 16;
+    if (blocks == 0) blocks = 1;
+    cast_f32_bf16_kernel<<<(unsigned)blocks, threads, 0, st>>>(
+        base, static_cast<__nv_bfloat16*>(out), pairs);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }

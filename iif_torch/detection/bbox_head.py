@@ -1,7 +1,8 @@
-"""Shared2FC bbox head and its inference decode: port of
-``iif_tpu/detection/bbox_head.py`` (``Shared2FCBBoxHead``,
-``bbox_head_get_bboxes``) under mmdet's names ``shared_fcs.{0,1}``,
-``fc_cls``, ``fc_reg``.
+"""Shared2FC bbox head, its training targets and loss, and its inference
+decode: port of ``iif_tpu/detection/bbox_head.py`` (``Shared2FCBBoxHead``,
+``BBoxTargets``, ``bbox_targets`` with the random sampler,
+``bbox_head_loss`` with the L1 box loss, ``bbox_head_get_bboxes``) under
+mmdet's names ``shared_fcs.{0,1}``, ``fc_cls``, ``fc_reg``.
 
 The 7x7 RoI features are flattened in mmdet's CHW order (the JAX package
 flattens HWC and permutes ``shared_fcs.0`` when converting, see
@@ -11,14 +12,16 @@ to its f32 parameters.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from iif_torch.ops.boxes import delta2bbox
-from iif_torch.ops.nms import multiclass_nms
+from iif_torch.ops.assigner import max_iou_assign
+from iif_torch.ops.boxes import bbox2delta, delta2bbox
+from iif_torch.ops.nms import _take, multiclass_nms
+from iif_torch.ops.sampler import random_sample_pos_neg
 
 BBOX_TARGET_MEANS = (0.0, 0.0, 0.0, 0.0)
 BBOX_TARGET_STDS = (0.1, 0.1, 0.2, 0.2)
@@ -44,6 +47,76 @@ class Shared2FCBBoxHead(nn.Module):
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
         return self.fc_cls(x), self.fc_reg(x), x
+
+
+class BBoxTargets(NamedTuple):
+    rois: torch.Tensor           # (B, R, 4) sampled proposals
+    labels: torch.Tensor         # (B, R) class, or num_classes for bg
+    label_weights: torch.Tensor  # (B, R)
+    bbox_targets: torch.Tensor   # (B, R, 4)
+    bbox_weights: torch.Tensor   # (B, R) 1 for positives
+    pos_gt_inds: torch.Tensor    # (B, R) matched gt index (positives)
+
+
+def bbox_targets(
+    proposals: torch.Tensor,       # (B, P, 4), no gradient
+    proposal_valid: torch.Tensor,  # (B, P)
+    gt_boxes: torch.Tensor,        # (B, G, 4)
+    gt_labels: torch.Tensor,       # (B, G)
+    gt_valid: torch.Tensor,        # (B, G)
+    num_classes: int,
+    num_samples: int = 512,
+    pos_fraction: float = 0.25,
+    noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> BBoxTargets:
+    """The gt boxes join the proposals (``add_gt_as_proposals``), MaxIoU
+    assigns them at IoU 0.5 without low-quality matching, the random
+    sampler picks
+    ``num_samples`` per image, positives first (``bbox_head.py:206-305``).
+    ``noise`` = the sampler's (pos, neg) draws, each (B, G + P)."""
+    g = gt_boxes.shape[1]
+    props = torch.cat([gt_boxes, proposals], 1)
+    pvalid = torch.cat([gt_valid, proposal_valid], 1)
+    assigned, _ = max_iou_assign(props, gt_boxes, gt_valid, 0.5, 0.5, 0.5,
+                                 match_low_quality=False)
+    assigned = torch.where(pvalid, assigned, torch.full_like(assigned, -1))
+    pos_noise, neg_noise = noise if noise is not None else (None, None)
+    inds, is_pos, valid = random_sample_pos_neg(
+        assigned, num_samples, pos_fraction, pos_noise, neg_noise, generator)
+    rois = _take(props, inds)
+    gt_idx = torch.clamp(torch.gather(assigned, 1, inds).long() - 1, 0,
+                         g - 1)
+    labels = torch.where(is_pos, torch.gather(gt_labels.long(), 1, gt_idx),
+                         torch.full_like(gt_idx, num_classes))
+    tgt = bbox2delta(rois, _take(gt_boxes, gt_idx), BBOX_TARGET_MEANS,
+                     BBOX_TARGET_STDS)
+    return BBoxTargets(rois, labels, valid.float(), tgt,
+                       (is_pos & valid).float(), gt_idx)
+
+
+def bbox_head_loss(
+    cls_score: torch.Tensor,     # (B*R, C+1)
+    bbox_pred: torch.Tensor,     # (B*R, C*4)
+    targets: BBoxTargets,
+    loss_cls,
+    num_classes: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The IIF recipe's ``bbox_head_loss`` (``bbox_head.py:308-350``,
+    ``loss_bbox="l1"``, ``avg_mode="sum"``): the classification loss over
+    the summed label weights, and the L1 on the positives' class-specific
+    deltas over the same sum."""
+    labels = targets.labels.reshape(-1)
+    lw = targets.label_weights.reshape(-1)
+    bw = targets.bbox_weights.reshape(-1)
+    tgt = targets.bbox_targets.reshape(-1, 4)
+    l_cls = loss_cls(cls_score, labels, weight=lw, avg_factor=lw.sum())
+    pred = bbox_pred.reshape(-1, num_classes, 4)
+    cls_idx = torch.clamp(labels, 0, num_classes - 1)
+    pred = torch.gather(pred, 1, cls_idx[:, None, None].expand(-1, 1, 4))
+    per = torch.abs(pred[:, 0] - tgt).sum(-1)
+    l_bbox = (per * bw).sum() / torch.clamp(lw.sum(), min=1.0)
+    return l_cls, l_bbox
 
 
 def bbox_head_get_bboxes(

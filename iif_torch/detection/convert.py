@@ -6,7 +6,10 @@ It is the inverse of ``iif_tpu.detection.pretrained_det.
 convert_mmdet_maskrcnn``: HWIO -> OIHW convolutions, Dense (in, out) ->
 Linear (out, in), BN scale/bias/mean/var -> weight/bias/running_mean/
 running_var, the HWC -> CHW permutation of the first shared FC undone, and
-the flip + transpose of the mask head's transposed conv undone.
+the flip + transpose of the mask head's transposed conv undone. Every one
+of these maps is linear, so a gradient pytree of the params converts the
+same way (pass zero ``batch_stats``): the training tests compare JAX's
+gradients with the port's under torch names through it.
 """
 from __future__ import annotations
 

@@ -1,22 +1,26 @@
-"""MaskRCNN R50-FPN and its inference pass: port of
+"""MaskRCNN R50-FPN, its training loss and its inference pass: port of
 ``iif_tpu/detection/detector.py`` (``MaskRCNN`` in its resnet + fpn +
-shared2fc + FCN-mask configuration, ``DetTestCfg``, ``normalize_if_uint8``,
-``make_anchor_generator``, ``fpn_shapes``, ``maskrcnn_simple_test``).
+shared2fc + FCN-mask configuration, ``DetTrainCfg``, ``DetTestCfg``,
+``normalize_if_uint8``, ``unpack_mask_bits``, ``resolve_gt_masks``,
+``make_anchor_generator``, ``fpn_shapes``, ``maskrcnn_loss``,
+``maskrcnn_simple_test``).
 
 The module holds mmdet's state_dict names (``backbone.*``, ``neck.*``,
 ``rpn_head.*``, ``roi_head.bbox_head.*``, ``roi_head.mask_head.*``), so an
 mmdet checkpoint loads as it is. Images enter as (B, H, W, 3) like the JAX
 package's; inside the trunk they are NCHW in ``channels_last`` memory, so
 each FPN map permuted to NHWC is a contiguous (B, H, W, C) view for the
-RoIAlign kernel. Each stage of ``maskrcnn_simple_test`` is a named
-``record_function`` span, so a ``torch.profiler`` trace splits a request
-by stage (a no-op when no profiler runs).
+RoIAlign kernels. Each stage of ``maskrcnn_loss`` and
+``maskrcnn_simple_test`` is a named ``record_function`` span, so a
+``torch.profiler`` trace splits a step or a request by stage (a no-op
+when no profiler runs).
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
@@ -24,11 +28,17 @@ from torch.profiler import record_function
 from iif_torch.detection.bbox_head import (
     Shared2FCBBoxHead,
     bbox_head_get_bboxes,
+    bbox_head_loss,
+    bbox_targets,
 )
-from iif_torch.detection.mask_head import FCNMaskHead
+from iif_torch.detection.mask_head import (
+    FCNMaskHead,
+    mask_head_loss,
+    mask_targets,
+)
 from iif_torch.detection.necks import FPN
 from iif_torch.detection.roi_extractor import SingleRoIExtractor
-from iif_torch.detection.rpn import RPNHead, rpn_proposals
+from iif_torch.detection.rpn import RPNHead, rpn_loss, rpn_proposals
 from iif_torch.models.resnet import ResNet
 from iif_torch.ops.anchors import AnchorGenerator
 
@@ -52,6 +62,23 @@ def normalize_if_uint8(images: torch.Tensor) -> torch.Tensor:
     return (images.float() - mean) / std
 
 
+def unpack_mask_bits(packed: torch.Tensor, width: int) -> torch.Tensor:
+    """Inverse of ``np.packbits(masks, axis=-1)`` (big-endian bits) on the
+    tensor's device: (..., W/8) uint8 -> (..., width) uint8 in {0, 1}."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(packed.shape[:-1] + (-1,))[..., :width]
+
+
+def resolve_gt_masks(batch: Dict[str, torch.Tensor], mask_width: int
+                     ) -> torch.Tensor:
+    """gt masks from the dense ``gt_masks`` key or the bit-packed
+    ``gt_masks_packed`` key (unpacked on the device)."""
+    if "gt_masks" in batch:
+        return batch["gt_masks"]
+    return unpack_mask_bits(batch["gt_masks_packed"], mask_width)
+
+
 class StandardRoIHead(nn.Module):
     """Container for mmdet's ``roi_head.bbox_head`` / ``roi_head.mask_head``
     names."""
@@ -64,8 +91,9 @@ class StandardRoIHead(nn.Module):
 
 class MaskRCNN(nn.Module):
     """Takes the keyword arguments of a ``configs/`` model dict.
-    ``frozen_stages``, ``norm_eval`` and ``cls_init`` shape training only
-    and are accepted for the configs' sake; ``compute_dtype`` is the trunk's
+    ``frozen_stages`` and ``norm_eval`` shape the trunk's training;
+    ``cls_init`` (an initialiser of the JAX package's fresh weights) is
+    accepted for the configs' sake; ``compute_dtype`` is the trunk's
     (``"bfloat16"`` in the IIF configs)."""
 
     def __init__(self, num_classes: int = 1203, depth: int = 50,
@@ -105,6 +133,64 @@ class MaskRCNN(nn.Module):
                 torch.from_numpy(a).to(device) for a in
                 make_anchor_generator().grid_anchors(fpn_shapes(img_hw))]
         return self._anchors[key]
+
+    def train_anchors(self, img_hw: Tuple[int, int], device
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """All levels' anchors concatenated (A_tot, 4) and their
+        inside-the-image flags (A_tot,), built once per canvas."""
+        key = ("train", tuple(img_hw), str(device))
+        if key not in self._anchors:
+            gen = make_anchor_generator()
+            shapes = fpn_shapes(img_hw)
+            self._anchors[key] = (
+                torch.from_numpy(np.concatenate(gen.grid_anchors(shapes))
+                                 ).to(device),
+                torch.from_numpy(np.concatenate(gen.valid_flags(
+                    shapes, tuple(img_hw)))).to(device))
+        return self._anchors[key]
+
+
+class DetTrainCfg(NamedTuple):
+    """``iif_tpu``'s ``DetTrainCfg`` as the headline config uses it: the
+    random samplers and the L1 box loss. Its other knobs (OHEM and the
+    other samplers, Dynamic R-CNN, ISR, CARL) are not ported, and
+    ``train_cfg_from_dict`` refuses them."""
+    rpn_num_samples: int = 256
+    rpn_pos_fraction: float = 0.5
+    rpn_nms_pre: int = 1000          # candidates per level before NMS
+    rpn_max_per_img: int = 1000
+    rpn_nms_iou: float = 0.7
+    rcnn_num_samples: int = 512
+    rcnn_pos_fraction: float = 0.25
+    mask_size: int = 28
+    num_mask_rois: int = 128         # = rcnn_num_samples * pos_fraction
+    mask_gt_stride: int = 1          # gt masks stored at 1/s canvas res
+
+
+# Knobs of the JAX package's DetTrainCfg and the only value the port takes.
+# ``roi_ext`` picks a RoIAlign route there ("ml" kernel or "flat" gather,
+# the same function); the port has one route for both.
+_TRAIN_CFG_FIXED = {"rcnn_loss_bbox": "l1", "rcnn_pos_sampler": "random",
+                    "rcnn_neg_sampler": "random", "rcnn_sampler_cfg": (),
+                    "rcnn_dynamic": False, "rcnn_isr": (), "rcnn_carl": ()}
+_TRAIN_CFG_DROPPED = ("roi_ext", "dynamic_iou_topk", "dynamic_beta_topk",
+                      "dynamic_interval", "dynamic_initial_iou",
+                      "dynamic_initial_beta")
+
+
+def train_cfg_from_dict(tc: Dict[str, Any]) -> DetTrainCfg:
+    """A config's ``train_cfg`` dict -> ``DetTrainCfg``. Raises
+    ``NotImplementedError`` for a knob value that is not ported."""
+    kw = {}
+    for k, v in tc.items():
+        if k in _TRAIN_CFG_FIXED:
+            if (tuple(v) if isinstance(v, list) else v) != \
+                    _TRAIN_CFG_FIXED[k]:
+                raise NotImplementedError(f"train_cfg.{k}={v!r} is not "
+                                          "ported")
+        elif k not in _TRAIN_CFG_DROPPED:
+            kw[k] = v
+    return DetTrainCfg(**kw)
 
 
 class DetTestCfg(NamedTuple):
@@ -161,6 +247,94 @@ def random_init_(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
             else:
                 normal(t, 1.0 / math.sqrt(t[0].numel()))
     return model
+
+
+def maskrcnn_loss(
+    model: MaskRCNN,
+    batch: Dict[str, torch.Tensor],
+    loss_cls,
+    cfg: DetTrainCfg = DetTrainCfg(),
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, Any]]:
+    """Forward and every loss of one batch (``detector.py:445-815`` for
+    the resnet + fpn + shared2fc + FCN-mask body).
+
+    batch: ``image`` (B, H, W, 3) uint8 or normalised float,
+    ``gt_boxes`` (B, G, 4), ``gt_labels`` (B, G), ``gt_valid`` (B, G),
+    and ``gt_masks`` (B, G, H/s, W/s) or ``gt_masks_packed`` (B, G, H/s,
+    W/s/8) with s = ``cfg.mask_gt_stride``. The samplers draw their noise
+    from ``generator``, or take it from ``noise``: ``{"rpn": (pos, neg)}``
+    each (B, A_tot) and ``{"rcnn": (pos, neg)}`` each (B, G + P).
+
+    Returns (total, losses, aux): ``losses`` has the JAX package's keys
+    (``loss_cls``, ``loss_bbox``, ``loss_rpn_cls``, ``loss_rpn_bbox``,
+    ``loss_mask``); ``aux`` is empty: the JAX package's carries the BN
+    statistics, which ``norm_eval`` leaves as they are."""
+    noise = noise or {}
+    images = batch["image"]
+    b, img_h, img_w, _ = images.shape
+    dev = images.device
+    gt_boxes, gt_valid = batch["gt_boxes"], batch["gt_valid"]
+
+    with record_function("backbone_fpn"):
+        feats = model.extract_feat(images)
+    with record_function("rpn_loss"):
+        cls_scores, bbox_preds = model.rpn_head(feats)
+        anchors, anchor_valid = model.train_anchors((img_h, img_w), dev)
+        l_rpn_cls, l_rpn_bbox = rpn_loss(
+            cls_scores, bbox_preds, anchors, anchor_valid, gt_boxes,
+            gt_valid, num_samples=cfg.rpn_num_samples,
+            pos_fraction=cfg.rpn_pos_fraction, noise=noise.get("rpn"),
+            generator=generator)
+    with record_function("rpn_proposals"):
+        proposals, _, prop_valid = rpn_proposals(
+            [s.detach() for s in cls_scores],
+            [d.detach() for d in bbox_preds],
+            model.anchors((img_h, img_w), dev), (img_h, img_w),
+            nms_pre=cfg.rpn_nms_pre, max_per_img=cfg.rpn_max_per_img,
+            nms_iou=cfg.rpn_nms_iou)
+    with record_function("bbox_targets"):
+        tgts = bbox_targets(
+            proposals, prop_valid, gt_boxes, batch["gt_labels"], gt_valid,
+            model.num_classes, num_samples=cfg.rcnn_num_samples,
+            pos_fraction=cfg.rcnn_pos_fraction, noise=noise.get("rcnn"),
+            generator=generator)
+        r = cfg.rcnn_num_samples
+        batch_idx = torch.arange(b, dtype=torch.float32,
+                                 device=dev).repeat_interleave(r)
+        rois5 = torch.cat([batch_idx[:, None], tgts.rois.reshape(-1, 4)], 1)
+    nhwc = [f.permute(0, 2, 3, 1) for f in feats[:4]]
+    with record_function("bbox_roi_align"):
+        roi_feats = SingleRoIExtractor((7, 7))(nhwc, rois5)
+    with record_function("bbox_head_loss"):
+        cls_score, bbox_pred, _ = model.roi_head.bbox_head(roi_feats)
+        l_cls, l_bbox = bbox_head_loss(cls_score, bbox_pred, tgts, loss_cls,
+                                       model.num_classes)
+    losses = {"loss_cls": l_cls, "loss_bbox": l_bbox,
+              "loss_rpn_cls": l_rpn_cls, "loss_rpn_bbox": l_rpn_bbox}
+
+    if model.with_mask:
+        # positives lead each image's slate
+        m = cfg.num_mask_rois
+        with record_function("mask_targets"):
+            pos_rois5 = rois5.reshape(b, r, 5)[:, :m].reshape(-1, 5)
+            pos_w = tgts.bbox_weights[:, :m].reshape(-1)
+            pos_gt = tgts.pos_gt_inds[:, :m].reshape(-1)
+            pos_labels = tgts.labels[:, :m].reshape(-1)
+            gt_masks = resolve_gt_masks(batch, img_w // cfg.mask_gt_stride)
+            mask_tgt = mask_targets(pos_rois5, pos_gt, gt_masks,
+                                    cfg.mask_size,
+                                    gt_stride=cfg.mask_gt_stride)
+        with record_function("mask_roi_align"):
+            mask_feats = SingleRoIExtractor((14, 14))(nhwc, pos_rois5)
+        with record_function("mask_head_loss"):
+            cls_idx = torch.clamp(pos_labels, 0, model.num_classes - 1)
+            mask_pred = model.roi_head.mask_head.logits_for_labels(
+                mask_feats, cls_idx)
+            losses["loss_mask"] = mask_head_loss(mask_pred, mask_tgt, pos_w)
+
+    return sum(losses.values()), losses, {}
 
 
 @torch.inference_mode()

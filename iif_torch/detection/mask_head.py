@@ -1,7 +1,8 @@
-"""FCN mask head and mask paste-back: port of
-``iif_tpu/detection/mask_head.py`` (``FCNMaskHead`` with
-``logits_for_labels``, ``paste_masks``) under mmdet's names
-``convs.{i}.conv``, ``upsample``, ``conv_logits``.
+"""FCN mask head, its training targets and loss, and mask paste-back:
+port of ``iif_tpu/detection/mask_head.py`` (``FCNMaskHead`` with
+``logits_for_labels``, ``mask_targets``, ``mask_head_loss``,
+``paste_masks``) under mmdet's names ``convs.{i}.conv``, ``upsample``,
+``conv_logits``.
 
 The head takes the 14x14 RoI features in the trunk's dtype and computes in
 f32 (flax promotes to its f32 parameters).
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from iif_torch.detection.necks import ConvModule
+from iif_torch.detection.rpn import bce_with_logits
 
 
 class FCNMaskHead(nn.Module):
@@ -48,6 +50,63 @@ class FCNMaskHead(nn.Module):
         sel = self.conv_logits.weight[:, :, 0, 0][labels]      # (R, C)
         out = torch.einsum("rchw,rc->rhw", feats, sel)
         return out + self.conv_logits.bias[labels][:, None, None]
+
+
+def mask_targets(
+    pos_rois: torch.Tensor,      # (R, 5) batch-indexed rois (positives)
+    pos_gt_inds: torch.Tensor,   # (R,) matched gt index within its image
+    gt_masks: torch.Tensor,      # (B, G, H/s, W/s) binary
+    mask_size: int = 28,
+    gt_stride: int = 1,
+) -> torch.Tensor:
+    """Each positive RoI's matched gt mask cropped to ``mask_size``^2 on
+    RoIAlign's grid (aligned, 2 samples per bin averaged), thresholded at
+    0.5 (``mask_head.py:219-271``). Returns (R, S, S) float32.
+
+    The crop is separable: Wy @ M @ Wx^T with per-RoI tent weights. It
+    rounds where the JAX package rounds (the weights and the intermediate
+    to bf16, the mask is 0/1 and exact in bf16) and takes each product in
+    f32 on those bf16 values, so the only difference left is the order
+    of the f32 sums."""
+    b, g, h, w = gt_masks.shape
+    r, s2 = pos_rois.shape[0], 2
+    dev = pos_rois.device
+    sel = gt_masks.reshape(b * g, h, w)[
+        pos_rois[:, 0].long() * g + pos_gt_inds.long()]
+    sel = sel.to(torch.bfloat16).float()                   # (R, H/s, W/s)
+
+    scale = 1.0 / gt_stride
+    x1 = pos_rois[:, 1] * scale - 0.5
+    y1 = pos_rois[:, 2] * scale - 0.5
+    x2 = pos_rois[:, 3] * scale - 0.5
+    y2 = pos_rois[:, 4] * scale - 0.5
+    jj = (torch.arange(mask_size * s2, dtype=torch.float32, device=dev)
+          + 0.5) / s2
+    ysamp = torch.clamp(y1[:, None] + (y2 - y1)[:, None] / mask_size * jj,
+                        0.0, h - 1.0)                       # (R, 2S)
+    xsamp = torch.clamp(x1[:, None] + (x2 - x1)[:, None] / mask_size * jj,
+                        0.0, w - 1.0)
+    hgrid = torch.arange(h, dtype=torch.float32, device=dev)
+    wgrid = torch.arange(w, dtype=torch.float32, device=dev)
+    wy = torch.clamp(1.0 - torch.abs(ysamp[:, :, None] - hgrid), min=0.0)
+    wx = torch.clamp(1.0 - torch.abs(xsamp[:, :, None] - wgrid), min=0.0)
+    wy = wy.reshape(r, mask_size, s2, h).mean(2).to(torch.bfloat16).float()
+    wx = wx.reshape(r, mask_size, s2, w).mean(2).to(torch.bfloat16).float()
+    a = torch.bmm(wy, sel).to(torch.bfloat16).float()       # (R, S, W/s)
+    crops = torch.bmm(a, wx.transpose(1, 2))                 # (R, S, S)
+    return (crops >= 0.5).float()
+
+
+def mask_head_loss(
+    mask_pred: torch.Tensor,     # (R, S, S) logits of each RoI's class
+    mask_tgt: torch.Tensor,      # (R, S, S)
+    pos_weight: torch.Tensor,    # (R,) 1 for real positives
+) -> torch.Tensor:
+    """Per-pixel BCE averaged per RoI, then over the real positives
+    (``mask_head.py:274-295``)."""
+    per_roi = bce_with_logits(mask_pred.float(), mask_tgt).mean(dim=(1, 2))
+    return (per_roi * pos_weight).sum() / torch.clamp(pos_weight.sum(),
+                                                      min=1.0)
 
 
 def _bilinear_weights(in_size: int, out_size: int, scale: torch.Tensor,

@@ -3,11 +3,12 @@
 ``SingleRoIExtractor``).
 
 The extractor has one route, the multi-level RoIAlign of
-``iif_torch/ops/roi_align_ml.py``: the kernel on a CUDA tensor, its plain
-version (the JAX package's ``_flat_gather``) on a CPU tensor. The kernel
-serves 7x7 and 14x14 in f32 and bf16, so the TPU's VMEM guards
-(``roi_extractor.py:77-83``) have no counterpart. The result is in the
-feature dtype.
+``iif_torch/ops/roi_align_ml.py``: on a CUDA tensor ``RoIAlignML`` (K1
+forward, K2 backward; under ``inference_mode`` only K1 runs), on a CPU
+tensor its plain version (the JAX package's ``_flat_gather``) under
+autograd. The kernels serve 7x7 and 14x14 in f32 and bf16, so the TPU's
+VMEM guards (``roi_extractor.py:77-83``) have no counterpart. The result
+is in the feature dtype.
 """
 from __future__ import annotations
 

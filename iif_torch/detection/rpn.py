@@ -1,6 +1,6 @@
-"""RPN head and fixed-shape proposal generation: port of
-``iif_tpu/detection/rpn.py`` (``RPNHead``, ``rpn_proposals``), the
-inference half of mmdet's ``rpn_head.py``.
+"""RPN head, its training loss and fixed-shape proposal generation: port
+of ``iif_tpu/detection/rpn.py`` (``RPNHead``, ``rpn_loss``,
+``rpn_proposals``), mmdet's ``rpn_head.py`` and ``anchor_head.py``.
 
 The head runs on NCHW (channels_last) maps and hands back NHWC views, so
 ``rpn_proposals`` sees the JAX package's (B, H, W, A) / (B, H, W, 4A)
@@ -8,14 +8,16 @@ layout and flattens anchors in the same (H, W, A) order.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from iif_torch.ops.boxes import delta2bbox
+from iif_torch.ops.assigner import max_iou_assign
+from iif_torch.ops.boxes import bbox2delta, delta2bbox
 from iif_torch.ops.nms import _take, nms, top_k
+from iif_torch.ops.sampler import random_sample_pos_neg
 
 
 class RPNHead(nn.Module):
@@ -44,6 +46,53 @@ class RPNHead(nn.Module):
             cls_scores.append(self.rpn_cls(t).permute(0, 2, 3, 1))
             bbox_preds.append(self.rpn_reg(t).permute(0, 2, 3, 1))
         return cls_scores, bbox_preds
+
+
+def bce_with_logits(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise sigmoid BCE in the JAX package's stable form."""
+    return (torch.clamp(x, min=0) - x * labels
+            + torch.log1p(torch.exp(-torch.abs(x))))
+
+
+def rpn_loss(
+    cls_scores: Sequence[torch.Tensor],
+    bbox_preds: Sequence[torch.Tensor],
+    anchors: torch.Tensor,        # (A_tot, 4) concatenated over levels
+    valid_mask: torch.Tensor,     # (A_tot,) anchors inside the image
+    gt_boxes: torch.Tensor,       # (B, G, 4) padded
+    gt_valid: torch.Tensor,       # (B, G)
+    num_samples: int = 256,
+    pos_fraction: float = 0.5,
+    noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss_cls, loss_bbox): MaxIoU assignment (pos 0.7, neg 0.3,
+    low-quality 0.3), BCE objectness on the sampled anchors and L1 on the
+    positives' deltas, both over the batch's count of valid samples
+    (``rpn.py:66-111``). ``noise`` = the sampler's (pos, neg) uniform
+    draws, each (B, A_tot); else drawn from ``generator``."""
+    b = cls_scores[0].shape[0]
+    scores = torch.cat([s.reshape(b, -1) for s in cls_scores], 1)
+    deltas = torch.cat([d.reshape(b, -1, 4) for d in bbox_preds], 1)
+    assigned, _ = max_iou_assign(anchors, gt_boxes, gt_valid, 0.7, 0.3,
+                                 0.3)
+    assigned = torch.where(valid_mask[None, :], assigned,
+                           torch.full_like(assigned, -1))
+    pos_noise, neg_noise = noise if noise is not None else (None, None)
+    inds, is_pos, sample_valid = random_sample_pos_neg(
+        assigned, num_samples, pos_fraction, pos_noise, neg_noise, generator)
+    labels = is_pos.float()
+    w = sample_valid.float()
+    s = torch.gather(scores, 1, inds)
+    loss_cls = (bce_with_logits(s, labels) * w).sum()
+
+    gt_idx = torch.clamp(torch.gather(assigned, 1, inds).long() - 1, 0,
+                         gt_boxes.shape[1] - 1)
+    tgt = bbox2delta(anchors[inds], _take(gt_boxes, gt_idx))
+    l1 = torch.abs(_take(deltas, inds) - tgt).sum(-1)
+    loss_bbox = (l1 * labels * w).sum()
+    denom = torch.clamp(w.sum(), min=1.0)
+    return loss_cls / denom, loss_bbox / denom
 
 
 def rpn_proposals(

@@ -1,0 +1,140 @@
+"""Detection trainer: port of ``iif_tpu/engine/detection.py``
+(``DetectionTrainer`` with ``init_state`` and one train step, and
+``frozen_backbone_mask``) for the MaskRCNN loss, with ``grad_accum=1`` and
+no EMA, FASA, Seesaw or Dynamic R-CNN state.
+
+The JAX step folds the step number into its base key; here each step
+draws its sampling noise from a ``torch.Generator`` seeded from
+``(seed, step)``. The step returns the JAX package's metrics: the losses
+and their sum under ``"loss"``, as device tensors (nothing syncs with the
+host). The backward and the optimizer are ``record_function`` spans
+(``backward``, ``optimizer``) beside the loss's stage spans.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import torch
+from torch.profiler import record_function
+
+from iif_torch.detection.detector import (
+    DetTrainCfg,
+    MaskRCNN,
+    build_detector,
+    maskrcnn_loss,
+    random_init_,
+    train_cfg_from_dict,
+)
+from iif_torch.device import resolve_device
+from iif_torch.engine.schedules import build_lr_schedule, build_optimizer
+
+
+def frozen_param(name: str, frozen_stages: int) -> bool:
+    """Whether the mmdet-named parameter belongs to the frozen stem or to
+    a stage <= ``frozen_stages`` (``frozen_backbone_mask``,
+    ``engine/detection.py:592-610``): the names whose ``requires_grad``
+    ``ResNet`` turns off, which is what the optimizer reads."""
+    if frozen_stages < 0:
+        return False
+    prefixes = ["backbone.conv1.", "backbone.bn1."] + [
+        f"backbone.layer{s}." for s in range(1, frozen_stages + 1)]
+    return any(name.startswith(p) for p in prefixes)
+
+
+@dataclass
+class DetTrainState:
+    step: int
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+
+
+class DetectionTrainer:
+    """Trains ``model`` (on ``device``, default the card) with
+    ``loss_cls`` under ``lr_schedule``; ``optimizer_cfg`` is the config's
+    ``optimizer`` dict (type, momentum, weight_decay)."""
+
+    def __init__(self, model: MaskRCNN, loss_cls,
+                 lr_schedule: Callable[[int], float],
+                 train_cfg: DetTrainCfg = DetTrainCfg(),
+                 optimizer_cfg: Optional[Dict[str, Any]] = None,
+                 seed: int = 0, device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).train()
+        self.loss_cls = loss_cls.to(self.device)
+        self.lr_schedule = lr_schedule
+        self.train_cfg = train_cfg
+        self.optimizer_cfg = dict(optimizer_cfg or {})
+        self.seed = seed
+
+    def init_state(self) -> DetTrainState:
+        """Optimizer state over the trainable parameters, at step 0."""
+        ocfg = self.optimizer_cfg
+        opt, sched = build_optimizer(
+            ocfg.get("type", "sgd"), self.model.parameters(),
+            self.lr_schedule, ocfg.get("momentum", 0.9),
+            ocfg.get("weight_decay", 1e-4))
+        return DetTrainState(0, opt, sched)
+
+    def train_step(self, state: DetTrainState,
+                   batch: Dict[str, Any],
+                   noise: Optional[Dict[str, Any]] = None
+                   ) -> Tuple[DetTrainState, Dict[str, torch.Tensor]]:
+        """One SGD step on ``batch`` (see ``maskrcnn_loss`` for its keys;
+        ``noise`` as there). Updates the model and ``state`` in place and
+        returns them with the metrics."""
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items()}
+        self.model.train()
+        generator = torch.Generator(device=self.device).manual_seed(
+            ((self.seed & 0xFFFFFFFF) << 32) | (state.step & 0xFFFFFFFF))
+        total, losses, _ = maskrcnn_loss(
+            self.model, batch, self.loss_cls, self.train_cfg,
+            generator=generator, noise=noise)
+        with record_function("backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        with record_function("optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
+        state.step += 1
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss"] = total.detach()
+        return state, metrics
+
+
+def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> DetectionTrainer:
+    """A trainer for a MaskRCNN config as ``iif_tpu/cli/train_det.py``
+    builds one (model, ``train_cfg`` with the pipeline's ``mask_stride``,
+    the step-decay schedule with warm-up, SGD), with seeded random
+    weights: the port loads no checkpoint for training yet. Raises
+    ``NotImplementedError`` for what the port does not train with:
+    gradient accumulation, gradient clipping, parameter-wise optimizer
+    settings and other LR policies."""
+    device = resolve_device(device)
+    ocfg, lcfg = dict(cfg.optimizer), dict(cfg.get("lr_config", {}))
+    unported = {
+        "data.grad_accum": cfg.data.get("grad_accum", 1) != 1,
+        "optimizer_config.grad_clip": bool(
+            cfg.get("optimizer_config", {}).get("grad_clip")),
+        "optimizer.paramwise_cfg": bool(ocfg.get("paramwise_cfg")),
+        "lr_config.policy": lcfg.get("policy", "step") != "step",
+    }
+    for key, bad in unported.items():
+        if bad:
+            raise NotImplementedError(f"{key} is not ported")
+    model = build_detector(dict(cfg.model))
+    random_init_(model, torch.Generator().manual_seed(seed))
+    tc = dict(cfg.get("train_cfg", {}))
+    tc.setdefault("mask_gt_stride",
+                  cfg.get("pipeline", {}).get("mask_stride", 1))
+    schedule = build_lr_schedule(
+        ocfg["lr"], steps_per_epoch, milestones=lcfg.get("milestones", []),
+        lr_gamma=lcfg.get("gamma", 0.1),
+        warmup_iters=lcfg.get("warmup_iters"),
+        warmup_factor=lcfg.get("warmup_factor", 1.0 / 1000))
+    return DetectionTrainer(model, loss_cls, schedule,
+                            train_cfg_from_dict(tc), ocfg, seed=seed,
+                            device=device)

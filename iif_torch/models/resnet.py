@@ -1,7 +1,13 @@
-"""ResNet v1.5 trunk for detection, inference mode: port of
-``iif_tpu/models/resnet.py`` (``ResNet``, ``Bottleneck``) with mmdet's
-state_dict names (``conv1``, ``bn1``, ``layer{s}.{i}.conv{1,2,3}``,
-``layer{s}.{i}.downsample.{0,1}``).
+"""ResNet v1.5 trunk for detection: port of ``iif_tpu/models/resnet.py``
+(``ResNet``, ``Bottleneck``) with mmdet's state_dict names (``conv1``,
+``bn1``, ``layer{s}.{i}.conv{1,2,3}``, ``layer{s}.{i}.downsample.{0,1}``).
+
+Training follows the detection configs: ``frozen_stages`` freezes the stem
+and the first stages (no gradient: their parameters do not require it and
+their outputs are detached where the JAX package stops the gradient), and
+``norm_eval=True`` keeps every BatchNorm on its running statistics while
+its affine parameters train. BN batch statistics (``norm_eval=False``)
+are not ported.
 
 Padding is explicit as in the JAX package: stem 7x7/2 pad 3, max-pool 3/2
 pad 1, the stride on the 3x3 conv. Parameters stay f32; convolutions run
@@ -30,9 +36,9 @@ def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor,
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference BatchNorm in flax's op order: (x - mean) * (rsqrt(var +
-    eps) * scale) + bias, in f32, rounded to the input dtype. Training-mode
-    statistics are not part of the serving path."""
+    """BatchNorm on its running statistics in flax's op order: (x - mean)
+    * (rsqrt(var + eps) * scale) + bias, in f32, rounded to the input
+    dtype. The statistics never update (``norm_eval``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
@@ -75,10 +81,7 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Bottleneck ResNet returning the four stage outputs (C2..C5).
-
-    ``frozen_stages`` and ``norm_eval`` only matter for training and are
-    kept for the config's sake."""
+    """Bottleneck ResNet returning the four stage outputs (C2..C5)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  frozen_stages: int = -1, norm_eval: bool = False,
@@ -103,15 +106,28 @@ class ResNet(nn.Module):
                     compute_dtype))
                 inplanes = planes * Bottleneck.expansion
             self.add_module(f"layer{stage}", nn.Sequential(*blocks))
+        if frozen_stages >= 0:            # mmdet ResNet._freeze_stages
+            for mod in [self.conv1, self.bn1] + [
+                    getattr(self, f"layer{s}")
+                    for s in range(1, frozen_stages + 1)]:
+                mod.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        if self.training and not self.norm_eval:
+            raise NotImplementedError(
+                "norm_eval=False needs BatchNorm batch statistics, which "
+                "are not ported")
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         out = F.relu(self.bn1(conv_in_dtype(self.conv1, x,
                                             self.compute_dtype)))
         out = F.max_pool2d(out, 3, stride=2, padding=1)
+        if self.frozen_stages >= 0:
+            out = out.detach()
         feats = []
         for stage in range(1, 5):
             out = getattr(self, f"layer{stage}")(out)
+            if stage <= self.frozen_stages:
+                out = out.detach()
             feats.append(out)
         return tuple(feats)

@@ -1,7 +1,8 @@
 """Multi-level grid anchors (numpy), the port's copy of
 ``iif_tpu/ops/anchors.py::AnchorGenerator`` as the RPN uses it: scales x
 ratios per stride, centred on each cell's corner (mmdet
-``anchor_generator.py`` with ``center_offset=0``)."""
+``anchor_generator.py`` with ``center_offset=0``), and the flags of the
+anchors whose centre lies inside the padded image."""
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
@@ -39,4 +40,21 @@ class AnchorGenerator:
                                xx.ravel(), yy.ravel()], axis=-1)
             anchors = (base[None, :, :] + shifts[:, None, :]).reshape(-1, 4)
             out.append(anchors.astype(np.float32))
+        return out
+
+    @property
+    def num_base_anchors(self) -> List[int]:
+        return [a.shape[0] for a in self.base_anchors]
+
+    def valid_flags(self, featmap_sizes: Sequence[Tuple[int, int]],
+                    pad_shape: Tuple[int, int]) -> List[np.ndarray]:
+        """Per-level (H*W*A,) bool: the anchor's cell corner lies inside
+        the padded image."""
+        out = []
+        for stride, n, (fh, fw) in zip(self.strides, self.num_base_anchors,
+                                       featmap_sizes):
+            vx = np.arange(fw) * stride < pad_shape[1]
+            vy = np.arange(fh) * stride < pad_shape[0]
+            vv = (vy[:, None] & vx[None, :]).ravel()
+            out.append(np.repeat(vv, n))
         return out

@@ -1,7 +1,7 @@
-"""Box primitives: pairwise IoU and the delta (dx, dy, dw, dh) decoder.
+"""Box primitives: pairwise IoU and the delta (dx, dy, dw, dh) coder.
 
-Port of ``iif_tpu/ops/boxes.py`` (``bbox_overlaps``, ``delta2bbox``), the
-mmdet ``delta_xywh_bbox_coder`` semantics. Boxes are (x1, y1, x2, y2) in
+Port of ``iif_tpu/ops/boxes.py`` (``bbox_overlaps``, ``bbox2delta``,
+``delta2bbox``), the mmdet ``delta_xywh_bbox_coder`` semantics. Boxes are (x1, y1, x2, y2) in
 pixels. ``bbox_overlaps`` takes leading batch dimensions.
 """
 from __future__ import annotations
@@ -25,6 +25,31 @@ def bbox_overlaps(boxes1: torch.Tensor, boxes2: torch.Tensor
     inter = wh[..., 0] * wh[..., 1]
     union = area1[..., :, None] + area2[..., None, :] - inter
     return inter / torch.clamp(union, min=1e-6)
+
+
+def bbox2delta(proposals: torch.Tensor, gt: torch.Tensor,
+               means: Sequence[float] = (0.0, 0.0, 0.0, 0.0),
+               stds: Sequence[float] = (1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Encode gt boxes as deltas with respect to proposals (regression
+    targets), (..., 4)."""
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = proposals[..., 2] - proposals[..., 0]
+    ph = proposals[..., 3] - proposals[..., 1]
+
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+
+    dx = (gx - px) / torch.clamp(pw, min=1e-6)
+    dy = (gy - py) / torch.clamp(ph, min=1e-6)
+    dw = torch.log(torch.clamp(gw, min=1e-6) / torch.clamp(pw, min=1e-6))
+    dh = torch.log(torch.clamp(gh, min=1e-6) / torch.clamp(ph, min=1e-6))
+    deltas = torch.stack([dx, dy, dw, dh], dim=-1)
+    means = torch.tensor(means, dtype=deltas.dtype, device=deltas.device)
+    stds = torch.tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    return (deltas - means) / stds
 
 
 def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,

@@ -1,27 +1,34 @@
-"""Multi-level aligned RoIAlign forward: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Multi-level aligned RoIAlign: the CUDA kernels' wrappers, the autograd
+pairing and the plain PyTorch versions.
 
-Replaces ``iif_tpu/ops/pallas/roi_align_kernel.py::roi_align_pallas_ml``
-(the TPU kernel ``_make_ml_kernel`` / ``_pallas_ml_call``). The kernel,
-``iif_torch/csrc/roi_align_ml.cu``, computes what
-``SingleRoIExtractor._flat_gather`` computes
-(``iif_tpu/detection/roi_extractor.py:97-166``): each RoI's FPN level from
-``map_roi_levels``, box = roi / stride - 0.5, out x out bins of s x s
-samples, each sample clamped into the map and read bilinearly with the
-high corner clamped, the mean over samples.
+K1, the forward, replaces ``iif_tpu/ops/pallas/roi_align_kernel.py::
+roi_align_pallas_ml`` (the TPU kernel ``_make_ml_kernel`` /
+``_pallas_ml_call``). It computes what ``SingleRoIExtractor._flat_gather``
+computes (``iif_tpu/detection/roi_extractor.py:97-166``): each RoI's FPN
+level from ``map_roi_levels``, box = roi / stride - 0.5, out x out bins of
+s x s samples, each sample clamped into the map and read bilinearly with
+the high corner clamped, the mean over samples.
 
-What bounds it on an H100: HBM bytes, i.e. the feature bytes read plus the
-(R, out, out, C) output written; it does a few FLOPs per byte. The design
-reads each bilinear corner as one coalesced row of C channels (NHWC, two
-channels a thread), keeps the per-sample geometry of a block in shared
-memory, accumulates in f32 and writes the output once in the feature type.
+K2, the backward, replaces the custom VJP ``_ml_bwd`` (TPU kernel
+``_make_ml_bwd_kernel`` / ``_pallas_ml_bwd_call``): the levels' gradient
+(none for the RoIs, which come from stop-gradient proposals and gt
+boxes), accumulated in f32 with atomics and cast to the feature dtype.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+Both kernels live in ``iif_torch/csrc/roi_align_ml.cu``. What bounds them
+on an H100 is HBM bytes: K1 reads the touched feature rows and writes the
+(R, out, out, C) output; K2 reads g and read-modify-writes the touched f32
+accumulator rows, then writes the levels' gradient. Both read each
+bilinear corner as one coalesced row of C channels (NHWC, two channels a
+thread) with a block's sample geometry in shared memory.
+
+``roi_align_ml`` is differentiable: on a CPU tensor it is the plain
+version under autograd; on a CUDA tensor it is ``RoIAlignML``, whose
+forward launches K1 and whose backward launches K2, or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Sequence, Tuple, Union
 
 import torch
@@ -128,14 +135,39 @@ def roi_align_ml_reference(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     return taps.mean(dim=(2, 4))
 
 
-def _kernel_fn():
-    fn = build.load(KERNEL).iif_roi_align_ml_fwd
+def roi_align_ml_grad_reference(feats: Sequence[torch.Tensor],
+                                rois: torch.Tensor, grad_out: torch.Tensor,
+                                output_size=(7, 7),
+                                strides: Sequence[int] = (4, 8, 16, 32),
+                                sampling_ratio: int = 0,
+                                finest_scale: float = 56.0
+                                ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K2: ``torch.autograd.grad`` of
+    ``roi_align_ml_reference`` at ``grad_out`` (R, oh, ow, C), taken on
+    f32 copies of the levels so that the sums run in f32, then cast to
+    each level's dtype. Only the levels' shapes and dtype matter."""
+    with torch.enable_grad():
+        f32 = [f.detach().float().requires_grad_(True)
+               for f in feats[:len(strides)]]
+        out = roi_align_ml_reference(f32, rois, output_size, strides,
+                                     sampling_ratio, finest_scale)
+        grads = torch.autograd.grad(out, f32, grad_out.float())
+    return tuple(g.to(f.dtype) for g, f in zip(grads, feats))
+
+
+def _fn(symbol: str, argtypes: list):
+    fn = getattr(build.load(KERNEL), symbol)
     if fn.argtypes is None:
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([vp] * 4 + [ci] * 8 + [cf] * 4 + [vp] * 4
-                       + [ci] * 5 + [vp])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+_VP, _CI, _CF, _CLL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_longlong)
+_FWD_ARGS = [_VP] * 4 + [_CI] * 8 + [_CF] * 4 + [_VP] * 4 + [_CI] * 5 + [_VP]
+_BWD_ARGS = ([_VP] * 2 + [_CLL] * 5 + [_CI] * 8 + [_CF] * 4 + [_VP] * 4
+             + [_CI] * 5 + [_VP])
 
 
 def _check_cuda_inputs(feats, rois, out_h, out_w, strides):
@@ -165,16 +197,107 @@ def _check_cuda_inputs(feats, rois, out_h, out_w, strides):
         raise ValueError("rois must be a contiguous (R, 5) float32 tensor")
 
 
+def _roi_meta(rois, num_levels, finest_scale):
+    """Each RoI's level (the plain version's ``map_roi_levels``, never a
+    device log2 near a level boundary) and batch index, int32."""
+    return (map_roi_levels(rois, num_levels, finest_scale),
+            rois[:, 0].to(torch.int32))
+
+
+def _level_dims(shapes) -> list:
+    dims = []
+    for shp in shapes:
+        dims += [int(shp[1]), int(shp[2])]
+    return dims
+
+
+def _count(counter: Dict[int, int], out_size: int) -> None:
+    counter[out_size] = counter.get(out_size, 0) + 1
+
+
+def _launch_fwd(feats, rois, lvl, bidx, out_size, s, strides):
+    """K1 on validated inputs: (R, out, out, C) in the feature dtype."""
+    r, c = rois.shape[0], feats[0].shape[-1]
+    out = torch.empty((r, out_size, out_size, c), dtype=feats[0].dtype,
+                      device=rois.device)
+    if r == 0:
+        return out
+    with torch.cuda.device(rois.device):    # the launch uses the current one
+        err = _fn("iif_roi_align_ml_fwd", _FWD_ARGS)(
+            *[f.data_ptr() for f in feats], *_level_dims(
+                [f.shape for f in feats]),
+            *[float(st) for st in strides],
+            rois.data_ptr(), lvl.data_ptr(), bidx.data_ptr(), out.data_ptr(),
+            r, c, out_size, s, _DTYPES[feats[0].dtype],
+            torch.cuda.current_stream(rois.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{KERNEL} forward launch failed: cudaError {err}")
+    _count(roi_align_ml.launches_by_size, out_size)
+    return out
+
+
+def _launch_bwd(shapes, dtype, rois, lvl, bidx, grad_out, out_size, s,
+                strides):
+    """K2 on validated inputs: the four levels' gradient in ``dtype``."""
+    dev = rois.device
+    c = int(shapes[0][-1])
+    sizes = [math.prod(shp) for shp in shapes]
+    offs = [sum(sizes[:i]) for i in range(len(sizes))]
+    total = sum(sizes)
+    acc = torch.empty(total, dtype=torch.float32, device=dev)
+    out = acc if dtype == torch.float32 else torch.empty(
+        total, dtype=dtype, device=dev)
+    g = grad_out.to(dtype).contiguous()
+    with torch.cuda.device(dev):
+        err = _fn("iif_roi_align_ml_bwd", _BWD_ARGS)(
+            acc.data_ptr(), out.data_ptr(), total, *offs,
+            *_level_dims(shapes), *[float(st) for st in strides],
+            rois.data_ptr(), lvl.data_ptr(), bidx.data_ptr(), g.data_ptr(),
+            rois.shape[0], c, out_size, s, _DTYPES[dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{KERNEL} backward launch failed: cudaError {err}")
+    _count(grad_launches_by_size, out_size)
+    return tuple(out[o:o + n].view(shp)
+                 for o, n, shp in zip(offs, sizes, shapes))
+
+
+class RoIAlignML(torch.autograd.Function):
+    """K1 forward, K2 backward, on CUDA tensors. The RoIs get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, rois, output_size, strides, sampling_ratio,
+                finest_scale, *feats):
+        lvl, bidx = _roi_meta(rois, len(strides), finest_scale)
+        out = _launch_fwd(feats, rois, lvl, bidx, output_size,
+                          sampling_ratio, strides)
+        ctx.save_for_backward(rois, lvl, bidx)
+        ctx.shapes = [tuple(f.shape) for f in feats]
+        ctx.dtype = feats[0].dtype
+        ctx.cfg = (output_size, sampling_ratio, tuple(strides))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rois, lvl, bidx = ctx.saved_tensors
+        out_size, s, strides = ctx.cfg
+        grads = _launch_bwd(ctx.shapes, ctx.dtype, rois, lvl, bidx,
+                            grad_out, out_size, s, strides)
+        return (None,) * 5 + grads
+
+
 def roi_align_ml(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                  output_size=(7, 7),
                  strides: Sequence[int] = (4, 8, 16, 32),
                  sampling_ratio: int = 0,
                  finest_scale: float = 56.0) -> torch.Tensor:
-    """Multi-level RoIAlign in the feature dtype, (R, oh, ow, C).
+    """Multi-level RoIAlign in the feature dtype, (R, oh, ow, C),
+    differentiable in ``feats``.
 
-    CPU tensors take ``roi_align_ml_reference``; CUDA tensors launch the
-    kernel (which takes 4 contiguous NHWC levels, f32 or bf16, and square
-    outputs) or raise."""
+    CPU tensors take ``roi_align_ml_reference`` under autograd; CUDA
+    tensors take ``RoIAlignML`` (K1 forward, K2 backward; 4 contiguous
+    NHWC levels, f32 or bf16, square outputs) or raise."""
     feats = tuple(feats[:len(strides)])
     out_h, out_w = _pair(output_size)
     s = sampling_ratio if sampling_ratio > 0 else 2
@@ -185,34 +308,16 @@ def roi_align_ml(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     if rois.device.type != "cuda":
         raise ValueError(f"unsupported device {rois.device}")
     _check_cuda_inputs(feats, rois, out_h, out_w, strides)
-    r = rois.shape[0]
-    c = feats[0].shape[-1]
-    out = torch.empty((r, out_h, out_w, c), dtype=feats[0].dtype,
-                      device=rois.device)
-    if r == 0:
-        return out
-    lvl = map_roi_levels(rois, len(strides), finest_scale)
-    bidx = rois[:, 0].to(torch.int32)
-    dims = []
-    for f in feats:
-        dims += [f.shape[1], f.shape[2]]
-    with torch.cuda.device(rois.device):    # the launch uses the current one
-        err = _kernel_fn()(
-            *[f.data_ptr() for f in feats], *dims,
-            *[float(st) for st in strides],
-            rois.data_ptr(), lvl.data_ptr(), bidx.data_ptr(), out.data_ptr(),
-            r, c, out_h, s, _DTYPES[feats[0].dtype],
-            torch.cuda.current_stream(rois.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
-    roi_align_ml.launches_by_size[out_h] = (
-        roi_align_ml.launches_by_size.get(out_h, 0) + 1)
-    return out
+    return RoIAlignML.apply(rois, out_h, tuple(strides), s, finest_scale,
+                            *feats)
 
 
-# Kernel launches per output size (7 or 14); CPU calls do not count.
+# Kernel launches per output size (7 or 14): K1's, and K2's (launched
+# only by ``RoIAlignML.backward``); CPU calls do not count.
 roi_align_ml.launches_by_size: Dict[int, int] = {}
+grad_launches_by_size: Dict[int, int] = {}
 
 
 def reset_launches() -> None:
     roi_align_ml.launches_by_size = {}
+    grad_launches_by_size.clear()

@@ -54,7 +54,9 @@ def test_port_package_has_every_module():
                 "detection/bbox_head.py", "detection/mask_head.py",
                 "detection/detector.py", "detection/convert.py",
                 "detection/losses.py", "detection/pipeline.py",
-                "detection/inference.py", "cli/serve.py"):
+                "detection/inference.py", "cli/serve.py",
+                "ops/assigner.py", "ops/sampler.py", "engine/schedules.py",
+                "engine/detection.py"):
         assert mod in names, mod
     assert (REPO / "iif_torch" / "csrc" / "roi_align_ml.cu").is_file()
 
@@ -67,8 +69,14 @@ def _needs_no_card():
 def test_entry_points_raise_without_cuda():
     _needs_no_card()
     from iif_torch.cli import serve
+    from iif_torch.config import Config
+    from iif_torch.detection.detector import MaskRCNN
     from iif_torch.device import resolve_device
     from iif_torch.detection.inference import init_detector
+    from iif_torch.engine.detection import (
+        DetectionTrainer,
+        trainer_from_config,
+    )
 
     cfg = str(REPO / "configs/iif/iif_r50_1x.py")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -77,6 +85,10 @@ def test_entry_points_raise_without_cuda():
         init_detector(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main([cfg])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DetectionTrainer(MaskRCNN(num_classes=3), None, lambda s: 0.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer_from_config(Config.fromfile(cfg), None, 100)
     assert resolve_device("cpu").type == "cpu"
 
 

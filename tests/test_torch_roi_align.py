@@ -1,7 +1,10 @@
 """Multi-level RoIAlign (kernel K1's plain version and the extractor that
 calls it) against the JAX package's ``SingleRoIExtractor(...,
 use_pallas="ml")``, which on the CPU runs ``_flat_gather``. The CUDA
-kernel itself runs only on the card (``cuda`` marker)."""
+kernels K1 and K2 themselves run only on the card (``cuda`` marker):
+
+    python3 -m pytest tests/test_torch_roi_align.py -m cuda -q
+"""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +14,7 @@ from iif_torch.detection.roi_extractor import SingleRoIExtractor
 from iif_torch.ops.roi_align_ml import (
     map_roi_levels,
     roi_align_ml,
+    roi_align_ml_grad_reference,
     roi_align_ml_reference,
 )
 
@@ -144,3 +148,36 @@ def test_kernel_matches_plain_on_card(o, r, dtype):
         ulp = torch.pow(2.0, torch.floor(torch.log2(cast.abs().clamp(
             min=2.0 ** -126))) - 7)
         assert bool(((got - cast).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o,r", [(7, 2048), (14, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_matches_plain_backward_on_card(o, r, dtype):
+    """K2 through ``RoIAlignML`` on the card against the plain backward at
+    the LVIS training shapes (B=4). Atomics add in an order that changes
+    from run to run, so f32 agrees to 1e-5 of the largest magnitude; bf16
+    also to 2^-8 of each value (one rounding of an f32 sum that may
+    differ in its last bits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.RandomState(o)
+    feats = [torch.from_numpy(rng.randn(4, h, w, 256).astype(np.float32))
+             .to("cuda", dtype) for h, w in LVIS_LEVELS]
+    rois = torch.from_numpy(make_rois(rng, r, (800, 1344), (16, 512)))
+    rois[:, 0] = torch.from_numpy(rng.randint(0, 4, r).astype(np.float32))
+    rois = rois.cuda()
+    g = torch.from_numpy(rng.randn(r, o, o, 256).astype(np.float32)).to(
+        "cuda", dtype)
+    leaves = [f.clone().requires_grad_() for f in feats]
+    roi_align_ml(leaves, rois, (o, o)).backward(g)
+    torch.cuda.synchronize()
+    want = roi_align_ml_grad_reference(
+        [f.float() for f in feats], rois, g.float(), (o, o))
+    scale = max(w.abs().max().item() for w in want)
+    for leaf, w in zip(leaves, want):
+        err = (leaf.grad.float() - w).abs()
+        bound = 1e-5 * scale
+        if dtype == torch.bfloat16:
+            bound = bound + 2.0 ** -8 * w.abs()
+        assert bool((err <= bound).all())
