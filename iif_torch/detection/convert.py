@@ -1,6 +1,7 @@
 """Weights carried across from the JAX package: ``maskrcnn_state_from_jax``
-turns an ``iif_tpu`` MaskRCNN (params, batch_stats) pytree of numpy arrays
-into this port's mmdet-named state_dict.
+and ``c4_state_from_jax`` turn an ``iif_tpu`` MaskRCNN or C4FasterRCNN
+(params, batch_stats) pytree of numpy arrays into this port's mmdet-named
+state_dict.
 
 It is the inverse of ``iif_tpu.detection.pretrained_det.
 convert_mmdet_maskrcnn``: HWIO -> OIHW convolutions, Dense (in, out) ->
@@ -58,29 +59,34 @@ def _leaf(sd, prefix, p, weight_fn) -> None:
         sd[prefix + ".bias"] = _t(p["bias"])
 
 
+def _resnet(sd, prefix: str, params, stats) -> None:
+    """A flax ResNet's or ResLayer's stem and ``layer{s}_{i}`` blocks ->
+    mmdet's ``{prefix}.conv1``, ``{prefix}.layer{s}.{i}.*``."""
+    for name, p in params.items():
+        if name == "conv1":
+            _leaf(sd, f"{prefix}.conv1", p, _conv)
+        elif name == "bn1":
+            _bn(sd, f"{prefix}.bn1", p, stats["bn1"])
+        else:                                   # layer{s}_{i}
+            stage, block = name[len("layer"):].split("_")
+            base = f"{prefix}.layer{stage}.{block}"
+            for mod, q in p.items():
+                if mod == "downsample_conv":
+                    _leaf(sd, base + ".downsample.0", q, _conv)
+                elif mod == "downsample_bn":
+                    _bn(sd, base + ".downsample.1", q, stats[name][mod])
+                elif mod.startswith("conv"):
+                    _leaf(sd, f"{base}.{mod}", q, _conv)
+                else:
+                    _bn(sd, f"{base}.{mod}", q, stats[name][mod])
+
+
 def maskrcnn_state_from_jax(params: Dict[str, Any],
                             batch_stats: Dict[str, Any]
                             ) -> Dict[str, torch.Tensor]:
     """``iif_tpu`` MaskRCNN variables -> mmdet-named state_dict."""
     sd: Dict[str, torch.Tensor] = {}
-    bb, bs = params["backbone"], batch_stats["backbone"]
-    for name, p in bb.items():
-        if name == "conv1":
-            _leaf(sd, "backbone.conv1", p, _conv)
-        elif name == "bn1":
-            _bn(sd, "backbone.bn1", p, bs["bn1"])
-        else:                                   # layer{s}_{i}
-            stage, block = name[len("layer"):].split("_")
-            base = f"backbone.layer{stage}.{block}"
-            for mod, q in p.items():
-                if mod == "downsample_conv":
-                    _leaf(sd, base + ".downsample.0", q, _conv)
-                elif mod == "downsample_bn":
-                    _bn(sd, base + ".downsample.1", q, bs[name][mod])
-                elif mod.startswith("conv"):
-                    _leaf(sd, f"{base}.{mod}", q, _conv)
-                else:
-                    _bn(sd, f"{base}.{mod}", q, bs[name][mod])
+    _resnet(sd, "backbone", params["backbone"], batch_stats["backbone"])
     for name, p in params["neck"].items():
         i = name.rsplit("_", 1)[-1]
         kind = "lateral_convs" if name.startswith("lateral") else "fpn_convs"
@@ -101,4 +107,21 @@ def maskrcnn_state_from_jax(params: Dict[str, Any],
             _leaf(sd, "roi_head.mask_head.conv_logits", p, _conv)
         else:                                   # conv{i}
             _leaf(sd, f"roi_head.mask_head.convs.{name[4:]}.conv", p, _conv)
+    return sd
+
+
+def c4_state_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]
+                      ) -> Dict[str, torch.Tensor]:
+    """``iif_tpu`` C4FasterRCNN variables -> mmdet-named state_dict
+    (``backbone.*``, ``rpn_head.*``, ``roi_head.shared_head.layer4.*``,
+    ``roi_head.bbox_head.fc_cls|fc_reg``). The JAX package has no mmdet
+    C4 converter, so this is the one direction."""
+    sd: Dict[str, torch.Tensor] = {}
+    _resnet(sd, "backbone", params["backbone"], batch_stats["backbone"])
+    for name, p in params["rpn_head"].items():
+        _leaf(sd, f"rpn_head.{name}", p, _conv)
+    _resnet(sd, "roi_head.shared_head", params["shared_head"],
+            batch_stats["shared_head"])
+    for name, p in params["bbox_head"].items():
+        _leaf(sd, f"roi_head.bbox_head.{name}", p, _fc)
     return sd

@@ -216,24 +216,28 @@ def fpn_shapes(img_hw: Tuple[int, int], num_levels: int = 5):
     return [(-(-h // s), -(-w // s)) for s in (4, 8, 16, 32, 64)][:num_levels]
 
 
-def random_init_(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
+def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights for every parameter and BN statistic, at
     scales that keep a deep trunk finite and the heads' outputs spread:
     normal(0, 1/sqrt(fan_in)) weights, BN scale in [0.5, 1] (the residual
-    ``bn3`` in [0.1, 0.3]), small random shifts and BN statistics."""
+    ``bn3`` in [0.1, 0.3]), small random shifts and BN statistics. A
+    model's ``init_std`` maps weight names to a normal std of their own."""
     def normal(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
     def uniform(t, lo, hi):
         t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=generator))
 
+    init_std = getattr(model, "init_std", {})
     with torch.no_grad():
         for name, t in list(model.named_parameters()) + list(
                 model.named_buffers()):
             *mods, leaf = name.split(".")
             if leaf == "num_batches_tracked":
                 continue
-            if any(m.startswith("bn") for m in mods) \
+            if name in init_std:
+                normal(t, init_std[name])
+            elif any(m.startswith("bn") for m in mods) \
                     or "downsample.1" in name:
                 if leaf == "weight":
                     lo, hi = (0.1, 0.3) if ".bn3" in name else (0.5, 1.0)
@@ -403,12 +407,18 @@ def maskrcnn_simple_test(
     return out
 
 
-def build_detector(model_cfg: Dict[str, Any]) -> MaskRCNN:
-    """Config dict (``cfg.model``) -> ``MaskRCNN``. Only the MaskRCNN
-    family with a ResNet + FPN trunk is ported."""
+def build_detector(model_cfg: Dict[str, Any]) -> nn.Module:
+    """Config dict (``cfg.model``) -> ``MaskRCNN`` or ``C4FasterRCNN``
+    (``iif_tpu/detection/__init__.py``). Other families are not ported."""
     kw = dict(model_cfg)
     kind = kw.pop("type", "MaskRCNN")
     kw.pop("pretrained_backbone", None)
+    if kind == "FasterRCNNC4":
+        from iif_torch.detection.c4 import C4FasterRCNN
+
+        for k in ("cls_predictor", "mask_predictor"):
+            kw.pop(k, None)
+        return C4FasterRCNN(**kw)
     if kind != "MaskRCNN":
         raise NotImplementedError(f"detector type {kind!r} is not ported")
     return MaskRCNN(**kw)

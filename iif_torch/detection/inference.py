@@ -16,9 +16,7 @@ from iif_torch.config import Config
 from iif_torch.detection.datasets import build_dataset
 from iif_torch.detection.detector import (
     DetTestCfg,
-    MaskRCNN,
     build_detector,
-    maskrcnn_simple_test,
     random_init_,
 )
 from iif_torch.detection.losses import (
@@ -29,13 +27,15 @@ from iif_torch.detection.losses import (
 )
 from iif_torch.detection.mask_head import paste_masks
 from iif_torch.detection.pipeline import DetectionPipeline
+from iif_torch.detection.simple_test import make_simple_test
 from iif_torch.device import resolve_device
 
 
 class Detector:
     """Bundles model + loss/test config + pipeline for repeated calls."""
 
-    def __init__(self, model: MaskRCNN, loss_cls, test_cfg: DetTestCfg,
+    def __init__(self, model: torch.nn.Module, loss_cls,
+                 test_cfg: DetTestCfg,
                  pipeline: DetectionPipeline, classes: List[str],
                  device: torch.device):
         self.model = model
@@ -73,7 +73,7 @@ def build_loss_cls(cfg_loss: Dict[str, Any], dataset, num_classes: int):
     return DetCrossEntropyLoss(num_classes=num_classes)
 
 
-def load_checkpoint(model: MaskRCNN, path: str) -> None:
+def load_checkpoint(model: torch.nn.Module, path: str) -> None:
     """Load an mmdet ``.pth`` (plain or runner checkpoint) by name."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("state_dict", "model"):
@@ -106,8 +106,7 @@ def init_detector(config: Union[str, Config],
 
     pcfg = cfg.get("pipeline", {})
     if not pcfg.get("keep_ratio", True):
-        raise ValueError("keep_ratio=False is bbox-only; MaskRCNN serving "
-                         "keeps the ratio")
+        raise NotImplementedError("keep_ratio=False is not ported")
     pipeline = DetectionPipeline(
         canvas=tuple(pcfg.get("canvas", (800, 1344))),
         scales=[tuple(s) for s in pcfg.get("scales", [(1333, 800)])])
@@ -154,8 +153,8 @@ def _postprocess(detector: Detector, sample: Dict[str, Any],
 
 
 def _run(detector: Detector, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-    return maskrcnn_simple_test(detector.model, images, detector.loss_cls,
-                                detector.test_cfg)
+    return make_simple_test(detector.model, detector.loss_cls,
+                            detector.test_cfg)(images)
 
 
 # ------------------------------------------------------------------- public

@@ -9,7 +9,7 @@ anew and an unchanged one is loaded as it is.
 
 Nothing is compiled at import: the first call that launches a kernel
 builds it, and ``build_all`` builds every kernel up front, one ``nvcc``
-call per source.
+call per source, all started together.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -26,11 +27,13 @@ CSRC = REPO_ROOT / "iif_torch" / "csrc"
 BUILD_DIR = REPO_ROOT / "build" / "iif_torch_kernels"
 
 # Flags per source. -fmad=false keeps the RoIAlign sample geometry in the
-# float op order of the plain version (see the source's header).
+# float op order of the plain version (see each source's header).
+_ROI_ALIGN_FLAGS = ["-O3", "-std=c++17",
+                    "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-fmad=false", "-Xptxas", "-v"]
 NVCC_FLAGS = {
-    "roi_align_ml": ["-O3", "-std=c++17",
-                     "-gencode", "arch=compute_90a,code=sm_90a",
-                     "-fmad=false", "-Xptxas", "-v"],
+    "roi_align_ml": _ROI_ALIGN_FLAGS,      # K1, K2
+    "roi_align": _ROI_ALIGN_FLAGS,         # K3
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -77,8 +80,10 @@ def build(name: str) -> str:
 
 
 def build_all() -> Dict[str, str]:
-    """Build every kernel; each one's ``ptxas`` report by name."""
-    return {name: build(name) for name in NVCC_FLAGS}
+    """Build every kernel, one ``nvcc`` a source, all at once; each one's
+    ``ptxas`` report by name."""
+    with ThreadPoolExecutor(len(NVCC_FLAGS)) as pool:
+        return dict(zip(NVCC_FLAGS, pool.map(build, NVCC_FLAGS)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,196 @@
+"""Single-level RoIAlign: the CUDA kernel's wrapper and its plain PyTorch
+version.
+
+K3 replaces ``iif_tpu/ops/pallas/roi_align_kernel.py::roi_align_pallas``
+(the TPU kernel ``_make_kernel`` / ``_pallas_call``), whose function off
+the TPU is ``iif_tpu/ops/roi_align.py::roi_align``. Both JAX functions
+have one counterpart here, ``roi_align``: each RoI's box = roi *
+spatial_scale - offset (0.5 when ``aligned``; without it the box is at
+least one cell wide and high), out_h x out_w bins of s x s samples
+(``sampling_ratio`` 0 means 2), each sample clamped into the map and
+read bilinearly with the high corner clamped, the mean over samples. The
+result is float32 whatever the features' dtype, as in JAX (the Pallas
+call casts to f32, the XLA path promotes bf16 x f32 weights).
+
+None of the TPU machinery is semantics: the 32x40 DMA window (which
+clamps the taps of wider RoIs), the 8-aligned x origin and the one-hot
+MXU matmuls have no counterpart, and non-square outputs take the kernel
+too. The kernel lives in ``iif_torch/csrc/roi_align.cu``. Its least time
+on an H100 is set by HBM bytes, mostly the f32 output it writes; as
+written, its instructions per channel pair set its pace (``PERF.md``).
+
+K3 has no backward here (its TPU backward K4 is not ported): on a CUDA
+tensor that requires a gradient ``roi_align`` raises rather than return
+a result that autograd cannot differentiate. On a CPU tensor it is the
+plain version, which autograd differentiates.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence, Tuple, Union
+
+import torch
+
+from iif_torch.ops import build
+
+KERNEL = "roi_align"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_TAPS = 64                      # output side * sampling ratio
+
+
+def _pair(size: Union[int, Sequence[int]]) -> Tuple[int, int]:
+    if isinstance(size, int):
+        return size, size
+    return int(size[0]), int(size[1])
+
+
+def roi_align_reference(features: torch.Tensor, rois: torch.Tensor,
+                        output_size=(7, 7), spatial_scale: float = 1.0,
+                        sampling_ratio: int = 0,
+                        aligned: bool = True) -> torch.Tensor:
+    """Plain version: a transcription of ``iif_tpu/ops/roi_align.py::
+    roi_align`` and its ``_bilinear_gather_batched``, in their op order.
+
+    features (B, H, W, C) f32 or bf16; rois (R, 5) = (batch_idx, x1, y1,
+    x2, y2) in image pixels. Returns (R, oh, ow, C) float32."""
+    out_h, out_w = _pair(output_size)
+    s = sampling_ratio if sampling_ratio > 0 else 2
+    offset = 0.5 if aligned else 0.0
+    b, h, w, c = features.shape
+    r = rois.shape[0]
+    dev = rois.device
+
+    # Divisors are tensors on purpose: PyTorch's CUDA division by a Python
+    # scalar multiplies by the reciprocal, which can move a sample by an
+    # ulp. A tensor divisor keeps the rounding of a true division.
+    def div(a, d):
+        return a / torch.tensor(float(d), dtype=torch.float32, device=dev)
+
+    # the batch index truncates as astype(int32); clamped into the batch
+    # as JAX's gather clamps an index past the end
+    bidx = rois[:, 0].to(torch.int64).clamp(0, b - 1)
+    x1 = rois[:, 1] * spatial_scale - offset
+    y1 = rois[:, 2] * spatial_scale - offset
+    x2 = rois[:, 3] * spatial_scale - offset
+    y2 = rois[:, 4] * spatial_scale - offset
+    roi_w = x2 - x1
+    roi_h = y2 - y1
+    if not aligned:                 # legacy: at least one cell
+        roi_w = torch.clamp(roi_w, min=1.0)
+        roi_h = torch.clamp(roi_h, min=1.0)
+    bin_w = div(roi_w, out_w)
+    bin_h = div(roi_h, out_h)
+
+    iy = div(torch.arange(out_h * s, dtype=torch.float32, device=dev) + 0.5, s)
+    ix = div(torch.arange(out_w * s, dtype=torch.float32, device=dev) + 0.5, s)
+    ys = y1[:, None] + bin_h[:, None] * iy[None, :]          # (R, Ty)
+    xs = x1[:, None] + bin_w[:, None] * ix[None, :]          # (R, Tx)
+    ys = torch.clamp(ys, 0.0, h - 1.0)
+    xs = torch.clamp(xs, 0.0, w - 1.0)
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    y1i = torch.clamp(y0 + 1.0, max=h - 1.0)
+    x1i = torch.clamp(x0 + 1.0, max=w - 1.0)
+    ly = ys - y0
+    lx = xs - x0
+
+    flat = features.reshape(b * h * w, c)
+    base = (bidx * (h * w))[:, None, None]
+
+    def take(yy, xx):
+        gidx = base + yy.long()[:, :, None] * w + xx.long()[:, None, :]
+        return flat.index_select(0, gidx.reshape(-1)).reshape(
+            r, yy.shape[1], xx.shape[1], c)
+
+    v00 = take(y0, x0)
+    v01 = take(y0, x1i)
+    v10 = take(y1i, x0)
+    v11 = take(y1i, x1i)
+    lyb = ly[:, :, None, None]                               # (R, Ty, 1, 1)
+    lxb = lx[:, None, :, None]                               # (R, 1, Tx, 1)
+    taps = (v00 * (1 - lyb) * (1 - lxb) + v01 * (1 - lyb) * lxb
+            + v10 * lyb * (1 - lxb) + v11 * lyb * lxb)
+    taps = taps.reshape(r, out_h, s, out_w, s, c)
+    return taps.mean(dim=(2, 4))
+
+
+def _fn():
+    fn = build.load(KERNEL).iif_roi_align_fwd
+    if fn.argtypes is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([vp] + [ci] * 4 + [vp] * 2 + [ci] * 4 + [cf]
+                       + [ci] * 2 + [vp])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda_inputs(features, rois, out_h, out_w, s):
+    if features.dtype not in _DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got "
+                        f"{features.dtype}")
+    if features.dim() != 4 or not features.is_contiguous():
+        raise ValueError("features must be a contiguous (B, H, W, C) tensor")
+    if features.shape[-1] % 2:
+        raise ValueError(f"kernel takes an even channel count, got "
+                         f"{features.shape[-1]}")
+    if features.data_ptr() % (2 * features.element_size()):
+        raise ValueError("feature storage must be aligned to a channel pair")
+    if (rois.dtype != torch.float32 or rois.dim() != 2
+            or rois.shape[1] != 5 or not rois.is_contiguous()):
+        raise ValueError("rois must be a contiguous (R, 5) float32 tensor")
+    if features.device != rois.device:
+        raise ValueError("features and rois must be on one device")
+    if max(out_h, out_w) * s > MAX_TAPS:
+        raise ValueError(f"kernel takes at most {MAX_TAPS} samples a side, "
+                         f"got {max(out_h, out_w)} x {s}")
+    if features.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "the single-level RoIAlign backward (TPU kernel K4) is not "
+            "ported: no gradient through K3")
+
+
+def _launch(features, rois, out_h, out_w, s, spatial_scale, aligned):
+    """K3 on validated inputs: (R, out_h, out_w, C) float32."""
+    bsz, h, w, c = features.shape
+    r = rois.shape[0]
+    out = torch.empty((r, out_h, out_w, c), dtype=torch.float32,
+                      device=rois.device)
+    if r == 0:
+        return out
+    with torch.cuda.device(rois.device):    # the launch uses the current one
+        err = _fn()(features.data_ptr(), bsz, h, w, c, rois.data_ptr(),
+                    out.data_ptr(), r, out_h, out_w, s, float(spatial_scale),
+                    int(bool(aligned)), _DTYPES[features.dtype],
+                    torch.cuda.current_stream(rois.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
+    counts = roi_align.launches_by_size
+    counts[(out_h, out_w)] = counts.get((out_h, out_w), 0) + 1
+    return out
+
+
+def roi_align(features: torch.Tensor, rois: torch.Tensor,
+              output_size=(7, 7), spatial_scale: float = 1.0,
+              sampling_ratio: int = 0, aligned: bool = True) -> torch.Tensor:
+    """Single-level RoIAlign, (R, oh, ow, C) float32.
+
+    CPU tensors take ``roi_align_reference``; CUDA tensors take K3 (a
+    contiguous NHWC map in f32 or bf16, an even channel count, no
+    gradient) or raise."""
+    out_h, out_w = _pair(output_size)
+    s = sampling_ratio if sampling_ratio > 0 else 2
+    if rois.device.type == "cpu":
+        return roi_align_reference(features, rois, (out_h, out_w),
+                                   spatial_scale, s, aligned)
+    if rois.device.type != "cuda":
+        raise ValueError(f"unsupported device {rois.device}")
+    _check_cuda_inputs(features, rois, out_h, out_w, s)
+    return _launch(features, rois, out_h, out_w, s, spatial_scale, aligned)
+
+
+# K3's launches per (out_h, out_w); CPU calls do not count.
+roi_align.launches_by_size: Dict[Tuple[int, int], int] = {}
+
+
+def reset_launches() -> None:
+    roi_align.launches_by_size = {}

@@ -56,9 +56,11 @@ def test_port_package_has_every_module():
                 "detection/losses.py", "detection/pipeline.py",
                 "detection/inference.py", "cli/serve.py",
                 "ops/assigner.py", "ops/sampler.py", "engine/schedules.py",
-                "engine/detection.py"):
+                "engine/detection.py", "ops/roi_align.py", "detection/c4.py",
+                "detection/simple_test.py"):
         assert mod in names, mod
-    assert (REPO / "iif_torch" / "csrc" / "roi_align_ml.cu").is_file()
+    for src in ("roi_align_ml.cu", "roi_align.cu"):
+        assert (REPO / "iif_torch" / "csrc" / src).is_file(), src
 
 
 def _needs_no_card():
@@ -92,12 +94,27 @@ def test_entry_points_raise_without_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_c4_entry_points_raise_without_cuda():
+    _needs_no_card()
+    from iif_torch.cli import serve
+    from iif_torch.detection.inference import init_detector
+
+    cfg = str(REPO / "configs/faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_detector(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main([cfg])
+
+
 def test_kernel_wrapper_raises_on_non_cpu_non_cuda():
+    from iif_torch.ops.roi_align import roi_align
     from iif_torch.ops.roi_align_ml import roi_align_ml
 
     feats = [torch.zeros(1, 4, 4, 2, device="meta")] * 4
     with pytest.raises(ValueError, match="unsupported device"):
         roi_align_ml(feats, torch.zeros(1, 5, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        roi_align(feats[0], torch.zeros(1, 5, device="meta"))
 
 
 def test_chip_smoke_fails_without_cuda():
