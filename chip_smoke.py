@@ -19,7 +19,12 @@
    R = 1000 B RoIs shaped like the serving proposals with border, outside,
    sub-cell and wider-than-40-cell ones, 14x14 at 1/16; f32 and bf16
    maps), likewise, and on small cases of its other options (unaligned,
-   sampling ratios 1 and 4, non-square bins).
+   sampling ratios 1 and 4, non-square bins). Then at the C4 training
+   shapes (B=4, R=2048 RoIs spread like the proposals plus border,
+   outside, sub-cell, whole-map and zero-size ones and a pile on one
+   cell, 14x14; f32 and bf16 maps): K3 again, and its backward K4,
+   through ``RoIAlign.backward`` as autograd runs it, against the plain
+   backward (in chunks of RoIs), likewise.
 3. Serving phase: IIF MaskRCNN R50-FPN with 1203 LVIS classes, bf16 trunk,
    seeded random weights and IIF weights from seeded long-tailed counts,
    serving 40 seeded images through ``inference_detector`` (b1) and
@@ -48,7 +53,13 @@
    counted from 0 over those steps, NMS host syncs a step, the moved and
    the frozen parameters; then each stage's wall time with the device drained at its ends and
    its kernel time, and the device's busy share over the unprofiled step.
-7. The card's name and power limit, the ``kernels`` JSON line, then the
+7. C4 training phase: the trainer of the C4 config as it stands (80
+   classes, bf16 trunk, SGD lr 0.02 with 500 warm-up iterations, frozen
+   stem and stage 1, ``norm_eval``, 2000 proposals, 512 RoIs an image,
+   CE) on a seeded b4 batch like 6.'s without masks and with 80 classes:
+   as in 6., with K3's and K4's launches (and K1's and K2's: none)
+   counted from 0, and its stages.
+8. The card's name and power limit, the ``kernels`` JSON line, then the
    device line as the last line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or the
@@ -76,12 +87,17 @@ SOURCE = "iif_torch/csrc/roi_align_ml.cu"
 K3_SOURCE = "iif_torch/csrc/roi_align.cu"
 REPLACES = {"K1": "iif_tpu/ops/pallas/roi_align_kernel.py:725",
             "K2": "iif_tpu/ops/pallas/roi_align_kernel.py:769",
-            "K3": "iif_tpu/ops/pallas/roi_align_kernel.py:103"}
+            "K3": "iif_tpu/ops/pallas/roi_align_kernel.py:103",
+            "K4": "iif_tpu/ops/pallas/roi_align_kernel.py:262"}
 C4_CONFIG = "configs/faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py"
 C4_MAP = (50, 84)                  # stride 16 on the 800x1344 canvas
 C4_CHANNELS = 1024
 C4_ROIS = 1000                     # rpn_max_per_img of the C4 test_cfg
 PLAIN_CHUNK = 100                  # RoIs a call of K3's plain version
+GRAD_CHUNK = 128                   # RoIs a call of K4's plain version
+C4_CLASSES = 80
+C4_TRAIN_ROIS = 512 * 4            # rcnn_num_samples x samples_per_gpu
+COCO_TRAIN_IMAGES = 118287         # train2017, for steps_per_epoch
 F32_TOL = 1e-5
 # K2 adds with atomics in an order that changes from run to run: f32
 # within GRAD_REL_TOL of the largest magnitude; bf16 besides within 2^-8
@@ -503,6 +519,141 @@ def kernel_k3_phase(torch, np):
     return rows, extra
 
 
+def make_c4_train_rois(rng, device):
+    """C4_TRAIN_ROIS RoIs over TRAIN_BATCH images: ``make_c4_rois``'s
+    (the proposals' spread, the whole canvas, border, outside and sub-cell
+    ones), a zero-size one, and 128 small RoIs piled onto one 16 px cell
+    of image 0, so that many samples add into the same corners."""
+    import torch
+
+    rois = make_c4_rois(rng, C4_TRAIN_ROIS, TRAIN_BATCH, "cpu")
+    rois[9] = torch.tensor([1.0, 300.0, 200.0, 300.0, 200.0])
+    n = 128
+    x0 = 512 + rng.uniform(0, 8, n)
+    y0 = 352 + rng.uniform(0, 8, n)
+    size = rng.uniform(2, 8, (n, 2))
+    rois[10:10 + n] = torch.tensor(
+        [[0.0, a, b, a + w, b + h] for a, b, (w, h) in zip(x0, y0, size)])
+    return rois.to(device)
+
+
+def roi_align_single_grad_bound(feat, rois, o, s=2):
+    """Least time for K4's call at the C4 scale (1/16): g (f32) read once,
+    the RoIs read once, the touched rows' f32 accumulators read and
+    written once, and the map's gradient written once in its dtype, over
+    HBM bandwidth; or its f32 FLOPs (as K3's) over the f32 peak."""
+    c, item = feat.shape[-1], feat.element_size()
+    touched = touched_rows_single(feat, rois, o, o, s, 1 / 16, True)
+    r = rois.shape[0]
+    nbytes = (r * o * o * c * 4 + r * 5 * 4 + touched * c * 4 * 2
+              + feat.numel() * item)
+    return _bound(nbytes, r * o * o * c * s * s * 12) + (touched,)
+
+
+def plain_single_grad_chunked(feat, rois, g):
+    """K4's plain version over all RoIs, GRAD_CHUNK at a time, summed in
+    f32 and cast once to the map's dtype: at once, its four corner
+    gathers would take 6.6 GB each at R=2048, C=1024."""
+    import torch
+
+    from iif_torch.ops.roi_align import roi_align_grad_reference
+
+    f32 = feat.detach().float()
+    total = torch.zeros_like(f32)
+    for i in range(0, rois.shape[0], GRAD_CHUNK):
+        total += roi_align_grad_reference(
+            f32, rois[i:i + GRAD_CHUNK], g[i:i + GRAD_CHUNK], (14, 14),
+            1 / 16)
+    return total.to(feat.dtype)
+
+
+def kernel_k4_phase(torch, np):
+    """At the C4 training shapes (the C4 map (4, 50, 84, 1024), R=2048,
+    14x14 at 1/16, s=0, aligned; f32 and bf16 maps): K3 against its plain
+    version, and K4, through ``RoIAlign.backward`` as autograd runs it in
+    a training step, against the plain backward, each with its error,
+    time, the plain version's time and the bound."""
+    from iif_torch.ops.roi_align import roi_align
+
+    rng = np.random.RandomState(5)
+    f32 = torch.tensor(rng.randn(TRAIN_BATCH, *C4_MAP, C4_CHANNELS),
+                       dtype=torch.float32, device="cuda")
+    rois = make_c4_train_rois(rng, "cuda")
+    g = torch.tensor(rng.randn(C4_TRAIN_ROIS, 14, 14, C4_CHANNELS),
+                     dtype=torch.float32, device="cuda")
+    # the gradient does not depend on the map's values: the f32 plain
+    # backward is the yardstick for both dtypes
+    want = plain_single_grad_chunked(f32, rois, g)
+    scale = want.abs().max().item()
+    k3, k4 = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        feat = f32.to(dt).detach().requires_grad_()
+
+        def k3_call():
+            with torch.no_grad():
+                return roi_align(feat, rois, (14, 14), 1 / 16)
+
+        got = k3_call()
+        torch.cuda.synchronize()
+        err = (got - plain_single_chunked(feat.detach(), rois, (14, 14),
+                                          1 / 16)).abs().max().item()
+        del got
+        bound_ms, bound_by, touched = roi_align_single_bound(
+            feat, rois, 14, 14, 2, 1 / 16, True)
+        row = {"o": 14, "R": C4_TRAIN_ROIS, "B": TRAIN_BATCH, "dtype": name,
+               "max_abs_err": err, "tolerance": F32_TOL,
+               "ok": err <= F32_TOL, "ms": cuda_ms(k3_call),
+               "plain_ms": cuda_ms(lambda: plain_single_chunked(
+                   feat.detach(), rois, (14, 14), 1 / 16), iters=1, reps=3),
+               "plain_note": f"the plain version in chunks of "
+                             f"{PLAIN_CHUNK} RoIs over all R",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "touched_feature_rows": touched}
+        log("kernel K3 train", json.dumps(row))
+        if not row["ok"]:
+            raise RuntimeError(f"K3 disagrees at the training shapes: {row}")
+        k3[name] = row
+
+        out = roi_align(feat, rois, (14, 14), 1 / 16)
+
+        def k4_call():
+            return torch.autograd.grad(out, feat, g, retain_graph=True)[0]
+
+        got = k4_call()
+        torch.cuda.synchronize()
+        check(got.dtype == dt and got.shape == feat.shape,
+              "K4 gives the map's dtype and shape")
+        d = (got.float() - want).abs()
+        bound = GRAD_REL_TOL * scale
+        if dt == torch.bfloat16:
+            bound = bound + 2.0 ** -8 * want.abs()
+        err = d.max().item()
+        excess = (d - bound).max().item()
+        del got, d
+        bound_ms, bound_by, touched = roi_align_single_grad_bound(
+            feat, rois, 14)
+        row = {"o": 14, "R": C4_TRAIN_ROIS, "B": TRAIN_BATCH, "dtype": name,
+               "max_abs_err": err, "max_grad": scale,
+               "tolerance": (f"{GRAD_REL_TOL} x max |grad|"
+                             + (" + 2^-8 x |value|"
+                                if dt == torch.bfloat16 else "")),
+               "ok": excess <= 0.0, "ms": cuda_ms(k4_call),
+               "plain_ms": cuda_ms(lambda: plain_single_grad_chunked(
+                   feat, rois, g), iters=1, reps=3),
+               "plain_note": f"the plain backward in chunks of "
+                             f"{GRAD_CHUNK} RoIs, summed in f32",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "touched_feature_rows": touched}
+        log("kernel K4", json.dumps(row))
+        if not row["ok"]:
+            raise RuntimeError(f"K4 disagrees with its plain version: "
+                               f"{row}")
+        k4[name] = row
+        del out
+    return k3, k4
+
+
 def write_lvis_annotations(np, path):
     """An LVIS-style annotation file with 1203 categories whose image
     counts are seeded long-tailed (1 to 10^4) over N = 100170 images, so
@@ -820,6 +971,7 @@ def c4_serving_phase(torch, np):
         return {"K3": k3_mod.roi_align.launches_by_size.get((14, 14), 0),
                 "K3_all_sizes": sum(k3_mod.roi_align.launches_by_size
                                     .values()),
+                "K4": sum(k3_mod.grad_launches_by_size.values()),
                 "K1": sum(k12_mod.roi_align_ml.launches_by_size.values()),
                 "K2": sum(k12_mod.grad_launches_by_size.values())}
 
@@ -852,9 +1004,9 @@ def c4_serving_phase(torch, np):
     for path, n in (("b1", REQUESTS), ("b2", REQUESTS // 2)):
         got = launches[path]
         if not (got["K3"] == got["K3_all_sizes"] == n
-                and got["K1"] == got["K2"] == 0):
+                and got["K1"] == got["K2"] == got["K4"] == 0):
             raise RuntimeError(f"C4 {path} path: K3 must launch once a "
-                               f"forward ({n}) and K1/K2 never: {got}")
+                               f"forward ({n}) and K1/K2/K4 never: {got}")
     for res in results + batched:
         check(set(res) == {"boxes", "scores", "labels", "valid"}
               and res["boxes"].shape == (100, 4), "100 boxes, no masks")
@@ -929,11 +1081,12 @@ TRAIN_STAGES = ("backbone_fpn", "rpn_loss", "rpn_proposals", "bbox_targets",
                 "mask_roi_align", "mask_head_loss", "backward", "optimizer")
 
 
-def synthetic_train_batch(np, torch, device):
+def synthetic_train_batch(np, torch, device, num_classes=NUM_CLASSES,
+                          with_masks=True):
     """A b4 batch shaped like ``bench.py``'s detection batch: uint8
     canvases, TRAIN_GT gt slots an image with about 30% valid, boxes 20 to
-    100 px, 1203-way labels, masks at half resolution bit-packed on the
-    last axis."""
+    100 px, ``num_classes``-way labels and, ``with_masks``, masks at half
+    resolution bit-packed on the last axis."""
     b, (h, w), g = TRAIN_BATCH, CANVAS, TRAIN_GT
     rng = np.random.RandomState(0)
     gt_boxes = np.zeros((b, g, 4), np.float32)
@@ -944,20 +1097,122 @@ def synthetic_train_batch(np, torch, device):
     batch = {
         "image": rng.randint(0, 256, (b, h, w, 3), np.uint8),
         "gt_boxes": gt_boxes,
-        "gt_labels": rng.randint(0, NUM_CLASSES, (b, g)).astype(np.int64),
+        "gt_labels": rng.randint(0, num_classes, (b, g)).astype(np.int64),
         "gt_valid": rng.rand(b, g) < 0.3,
-        "gt_masks_packed": np.packbits(
-            (rng.rand(b, g, h // 2, w // 2) < 0.1).astype(np.uint8),
-            axis=-1),
     }
+    if with_masks:
+        batch["gt_masks_packed"] = np.packbits(
+            (rng.rand(b, g, h // 2, w // 2) < 0.1).astype(np.uint8),
+            axis=-1)
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def run_train_steps(torch, trainer, state, batch, launch_counts):
+    """TRAIN_WARMUP + TRAIN_STEPS steps on ``batch`` after every launch
+    count and the NMS host syncs are set to 0: the host-clock time of the
+    timed steps, every step's losses (all finite), the launch counts read
+    just after (``launch_counts()``) and the syncs a step."""
+    from iif_torch.ops import roi_align as k34_mod
+    from iif_torch.ops import roi_align_ml as k12_mod
+    from iif_torch.ops.nms import nms
+
+    torch.cuda.synchronize()
+    k12_mod.reset_launches()
+    k34_mod.reset_launches()
+    nms.host_syncs = 0
+    step_ms, metrics = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    launches = launch_counts()
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    losses = [{k: v.item() for k, v in m.items()} for m in metrics]
+    for i, row in enumerate(losses):
+        log(f"train step {i}", json.dumps(row))
+        for k, v in row.items():
+            check(math.isfinite(v), f"finite {k} at step {i}")
+    return state, step_ms, losses, launches, nms.host_syncs / n_steps
+
+
+def profile_train_step(torch, trainer, state, batch, modules, stages,
+                       kernel_parts, step_median):
+    """Each of ``stages`` (the ``record_function`` spans of ``modules``)
+    synchronised at its ends: its wall time on the host clock over 2
+    steps, then one step under torch.profiler, where the kernels that ran
+    inside a span's window are the stage's; the device's busy share over
+    the unprofiled step median; the kernels of ``kernel_parts`` (label ->
+    part of the kernel's name) by name."""
+    import contextlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    walls = {k: [] for k in stages}
+
+    @contextlib.contextmanager
+    def synced_span(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function(name):
+            yield
+            torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+
+    originals = [m.record_function for m in modules]
+    for m in modules:
+        m.record_function = synced_span
+    try:
+        for _ in range(2):
+            state, _ = trainer.train_step(state, batch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        for m, orig in zip(modules, originals):
+            m.record_function = orig
+    windows, kernels = [], []
+    for e in prof.events():
+        if e.name in walls and e.device_type == DeviceType.CPU:
+            windows.append((e.time_range.start, e.time_range.end, e.name))
+        elif (e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)):
+            kernels.append((e.time_range.start, e.time_range.end, e.name))
+    by_stage = {k: {"synced_wall_ms": statistics.median(v[:2]),
+                    "kernel_ms": 0.0} for k, v in walls.items()}
+    by_kernel = {}
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi, name in sorted(kernels):
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+        t, c = by_kernel.get(name, (0.0, 0))
+        by_kernel[name] = (t + (hi - lo) / 1e3, c + 1)
+        for wlo, whi, stage in windows:
+            if wlo <= lo < whi:
+                by_stage[stage]["kernel_ms"] += (hi - lo) / 1e3
+                break
+    return state, {
+        "stages": by_stage,
+        "stage_wall_sum_ms": sum(v["synced_wall_ms"]
+                                 for v in by_stage.values()),
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / 1e3 / step_median,
+        "roi_align_kernels": {
+            label: [sum(t for k, (t, _) in by_kernel.items() if part in k),
+                    sum(c for k, (_, c) in by_kernel.items() if part in k)]
+            for label, part in kernel_parts},
+        "top_kernels": [(k[:70], t, c) for k, (t, c) in sorted(
+            by_kernel.items(), key=lambda kv: -kv[1][0])[:12]]}
 
 
 def training_phase(torch, np):
     """The trainer of the headline config for TRAIN_WARMUP + TRAIN_STEPS
     steps at b4, its launches and checks, then its stages."""
-    import contextlib
-
     import iif_torch.detection.detector as detector_mod
     import iif_torch.engine.detection as engine_mod
     from iif_torch.config import Config
@@ -965,12 +1220,7 @@ def training_phase(torch, np):
     from iif_torch.detection.inference import build_loss_cls
     from iif_torch.detection.losses import compute_det_iif_from_counts
     from iif_torch.engine.detection import trainer_from_config
-    from iif_torch.ops.nms import nms
-    from iif_torch.ops.roi_align_ml import (
-        grad_launches_by_size,
-        reset_launches,
-        roi_align_ml,
-    )
+    from iif_torch.ops.roi_align_ml import grad_launches_by_size, roi_align_ml
 
     cfg = Config.fromfile(str(REPO / "configs/iif/iif_r50_1x.py"))
     ann = BUILD / "lvis_v1_synthetic.json"
@@ -1009,26 +1259,12 @@ def training_phase(torch, np):
         "roi_head.mask_head.conv_logits.weight")}
 
     # the training path: K1 and K2 counted from 0 over all its steps
-    torch.cuda.synchronize()
-    reset_launches()
-    nms.host_syncs = 0
-    step_ms, metrics = [], []
-    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, m = trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        if i >= TRAIN_WARMUP:
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-        metrics.append(m)
-    launches = {"K1": dict(roi_align_ml.launches_by_size),
-                "K2": dict(grad_launches_by_size)}
+    torch.cuda.reset_peak_memory_stats()
+    state, step_ms, losses, launches, syncs = run_train_steps(
+        torch, trainer, state, batch,
+        lambda: {"K1": dict(roi_align_ml.launches_by_size),
+                 "K2": dict(grad_launches_by_size)})
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
-    syncs = nms.host_syncs / n_steps
-    losses = [{k: v.item() for k, v in m.items()} for m in metrics]
-    for i, row in enumerate(losses):
-        log(f"train step {i}", json.dumps(row))
-        for k, v in row.items():
-            check(math.isfinite(v), f"finite {k} at step {i}")
     log("training path launches", json.dumps(launches))
     for k, counts_k in launches.items():
         if counts_k != {7: n_steps, 14: n_steps}:
@@ -1047,71 +1283,104 @@ def training_phase(torch, np):
               "first_loss": losses[0]["loss"], "last_loss": losses[-1]["loss"],
               "launches": launches, "nms_host_syncs_per_step": syncs,
               "peak_allocated_gib": peak_gb}
+    state, result["profile"] = profile_train_step(
+        torch, trainer, state, batch, (detector_mod, engine_mod),
+        TRAIN_STAGES, (("K1", "roi_align_ml_fwd_kernel"),
+                       ("K2", "roi_align_ml_bwd_kernel"),
+                       ("K2 cast", "cast_f32_bf16_kernel")),
+        statistics.median(step_ms))
+    return result
 
-    # stages: each span synchronised at its ends; its wall time on the
-    # host clock over 2 steps, then one step under torch.profiler, where
-    # the kernels that ran inside a span's window are the stage's
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
 
-    walls = {k: [] for k in TRAIN_STAGES}
+C4_TRAIN_STAGES = ("backbone", "rpn_loss", "rpn_proposals", "bbox_targets",
+                   "roi_align", "shared_head", "bbox_head_loss", "backward",
+                   "optimizer")
 
-    @contextlib.contextmanager
-    def synced_span(name):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with record_function(name):
-            yield
-            torch.cuda.synchronize()
-        walls[name].append((time.perf_counter() - t0) * 1e3)
 
-    originals = (detector_mod.record_function, engine_mod.record_function)
-    detector_mod.record_function = engine_mod.record_function = synced_span
-    try:
-        for _ in range(2):
-            state, _ = trainer.train_step(state, batch)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            state, _ = trainer.train_step(state, batch)
-            torch.cuda.synchronize()
-    finally:
-        detector_mod.record_function, engine_mod.record_function = originals
-    windows, kernels = [], []
-    for e in prof.events():
-        if e.name in walls and e.device_type == DeviceType.CPU:
-            windows.append((e.time_range.start, e.time_range.end, e.name))
-        elif (e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)):
-            kernels.append((e.time_range.start, e.time_range.end, e.name))
-    stages = {k: {"synced_wall_ms": statistics.median(v[:2]),
-                  "kernel_ms": 0.0} for k, v in walls.items()}
-    by_kernel = {}
-    busy_us, end = 0.0, float("-inf")
-    for lo, hi, name in sorted(kernels):
-        if hi > end:
-            busy_us += hi - max(lo, end)
-            end = hi
-        t, c = by_kernel.get(name, (0.0, 0))
-        by_kernel[name] = (t + (hi - lo) / 1e3, c + 1)
-        for wlo, whi, stage in windows:
-            if wlo <= lo < whi:
-                stages[stage]["kernel_ms"] += (hi - lo) / 1e3
-                break
-    step_median = statistics.median(step_ms)
-    result["profile"] = {
-        "stages": stages,
-        "stage_wall_sum_ms": sum(v["synced_wall_ms"]
-                                 for v in stages.values()),
-        "device_busy_ms": busy_us / 1e3,
-        "device_busy_share": busy_us / 1e3 / step_median,
-        "roi_align_kernels": {
-            label: [sum(t for k, (t, _) in by_kernel.items() if part in k),
-                    sum(c for k, (_, c) in by_kernel.items() if part in k)]
-            for label, part in (("K1", "roi_align_ml_fwd_kernel"),
-                                ("K2", "roi_align_ml_bwd_kernel"),
-                                ("K2 cast", "cast_f32_bf16_kernel"))},
-        "top_kernels": [(k[:70], t, c) for k, (t, c) in sorted(
-            by_kernel.items(), key=lambda kv: -kv[1][0])[:12]]}
+def c4_training_phase(torch, np):
+    """The trainer of the C4 config as it stands for TRAIN_WARMUP +
+    TRAIN_STEPS steps at b4: K3's and K4's launches (K1's and K2's: none)
+    counted from 0, every loss finite, stage 1 frozen and the trainable
+    parameters moved; then its stages."""
+    import iif_torch.detection.c4 as c4_mod
+    import iif_torch.engine.detection as engine_mod
+    from iif_torch.config import Config
+    from iif_torch.detection.inference import build_loss_cls
+    from iif_torch.detection.losses import DetCrossEntropyLoss
+    from iif_torch.engine.detection import trainer_from_config
+    from iif_torch.ops import roi_align as k34_mod
+    from iif_torch.ops import roi_align_ml as k12_mod
+
+    cfg = Config.fromfile(str(REPO / C4_CONFIG))
+    loss_cls = build_loss_cls(cfg.loss_cls, None, C4_CLASSES)
+    check(isinstance(loss_cls, DetCrossEntropyLoss), "CE loss")
+    t0 = time.time()
+    trainer = trainer_from_config(
+        cfg, loss_cls, COCO_TRAIN_IMAGES // cfg.data["samples_per_gpu"],
+        device="cuda")
+    log(f"trainer_from_config C4 s {time.time() - t0:.3f}")
+    model, tcfg = trainer.model, trainer.train_cfg
+    check(isinstance(model, c4_mod.C4FasterRCNN)
+          and trainer.loss_fn is c4_mod.c4_loss, "C4 model, c4_loss")
+    check(model.num_classes == C4_CLASSES and model.backbone.num_stages == 3
+          and len(model.roi_head.shared_head.layer4) == 3,
+          "80 classes, stages 1-3 trunk, 3-block res5 head")
+    check(model.backbone.compute_dtype == torch.bfloat16, "bf16 trunk")
+    check(model.backbone.frozen_stages == 1 and model.backbone.norm_eval,
+          "frozen_stages=1, norm_eval")
+    check(tcfg.rpn_nms_pre == 2000 and tcfg.rpn_max_per_img == 2000
+          and tcfg.rcnn_num_samples * TRAIN_BATCH == C4_TRAIN_ROIS,
+          "train_cfg rpn_nms_pre=2000, rpn_max_per_img=2000, 512 RoIs")
+    check(cfg.data["samples_per_gpu"] == TRAIN_BATCH, "samples_per_gpu=4")
+    state = trainer.init_state()
+    opt = state.optimizer.param_groups[0]
+    check(opt["momentum"] == 0.9 and opt["weight_decay"] == 1e-4
+          and abs(opt["lr"] / (0.02 / 1000) - 1) < 1e-6
+          and abs(trainer.lr_schedule(500) / 0.02 - 1) < 1e-6,
+          "SGD 0.02, momentum 0.9, wd 1e-4, 500 warm-up steps from 1/1000")
+    batch = synthetic_train_batch(np, torch, "cuda", C4_CLASSES,
+                                  with_masks=False)
+    params = dict(model.named_parameters())
+    watch = {n: params[n].detach().clone() for n in (
+        "backbone.layer1.0.conv1.weight", "backbone.layer2.0.conv1.weight",
+        "roi_head.shared_head.layer4.0.conv1.weight",
+        "roi_head.bbox_head.fc_cls.weight")}
+
+    # the C4 training path: K3 and K4 (and K1, K2) counted from 0
+    torch.cuda.reset_peak_memory_stats()
+    state, step_ms, losses, launches, syncs = run_train_steps(
+        torch, trainer, state, batch,
+        lambda: {"K3": dict(k34_mod.roi_align.launches_by_size),
+                 "K4": dict(k34_mod.grad_launches_by_size),
+                 "K1": dict(k12_mod.roi_align_ml.launches_by_size),
+                 "K2": dict(k12_mod.grad_launches_by_size)})
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    log("C4 training path launches",
+        json.dumps({k: {str(s): n for s, n in v.items()}
+                    for k, v in launches.items()}))
+    want = {"K3": {(14, 14): n_steps}, "K4": {(14, 14): n_steps},
+            "K1": {}, "K2": {}}
+    if launches != want:
+        raise RuntimeError(f"C4 training path: K3 and K4 must launch once a "
+                           f"step at 14x14 and K1/K2 never: {launches}")
+    moved = {n: (params[n].detach() - v).abs().max().item()
+             for n, v in watch.items()}
+    log("C4 parameter change", json.dumps(moved))
+    check(moved["backbone.layer1.0.conv1.weight"] == 0.0,
+          "frozen stage-1 weight unchanged")
+    check(all(v > 0 for n, v in moved.items() if "layer1" not in n),
+          "trainable parameters moved")
+    result = {"steps": n_steps, "step_ms": spread(step_ms),
+              "img_per_s": TRAIN_BATCH * 1e3 / statistics.median(step_ms),
+              "first_loss": losses[0]["loss"], "last_loss": losses[-1]["loss"],
+              "launches": {k: v.get((14, 14), 0) for k, v in launches.items()},
+              "nms_host_syncs_per_step": syncs,
+              "peak_allocated_gib":
+                  torch.cuda.max_memory_allocated() / 2 ** 30}
+    state, result["profile"] = profile_train_step(
+        torch, trainer, state, batch, (c4_mod, engine_mod), C4_TRAIN_STAGES,
+        (("K3", "roi_align_fwd_kernel"), ("K4", "roi_align_bwd_kernel")),
+        statistics.median(step_ms))
     return result
 
 
@@ -1155,6 +1424,7 @@ def main() -> int:
     kern = kernel_phase(torch, np)
     kern_train, kern_grad = kernel_train_phase(torch, np)
     k3_rows, k3_options = kernel_k3_phase(torch, np)
+    k3_train, k4_rows = kernel_k4_phase(torch, np)
     serve = serving_phase(torch, np)
     log("serving", json.dumps({k: v for k, v in serve.items()
                                if k not in ("detector", "image")}),
@@ -1171,6 +1441,8 @@ def main() -> int:
     log("C4 profile b1", json.dumps(c4_prof))
     train = training_phase(torch, np)
     log("training", json.dumps(train), "card", card)
+    c4_train = c4_training_phase(torch, np)
+    log("C4 training", json.dumps(c4_train), "card", card)
 
     # one entry per kernel, output size and path shape: K1 at the serving
     # shapes with the serving paths' launches, K1 and K2 at the training
@@ -1228,6 +1500,28 @@ def main() -> int:
         "b2": {k: row2[k] for k in ("ms", "plain_ms", "bound_ms")},
         "shape": "R=1000 B=1 bf16 C4 map 50x84x1024 -> f32 (b2: R=2000 "
                  "B=2); plain version in chunks of 100 RoIs"})
+    # K3 and K4 at the C4 training shapes, with the C4 training path's
+    # launches
+    shape = (f"R={C4_TRAIN_ROIS} B={TRAIN_BATCH} bf16 C4 map 50x84x1024, "
+             "14x14")
+    for name, rows, key, source, note in (
+            ("roi_align_14x14_c4_train", k3_train, "K3", K3_SOURCE,
+             "; plain version in chunks of 100 RoIs"),
+            ("roi_align_grad_14x14_c4_train", k4_rows, "K4", K3_SOURCE,
+             ", through autograd; plain backward in chunks of 128 RoIs")):
+        row = rows["bfloat16"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[key],
+            "launches": c4_train["launches"][key],
+            "launches_by_path": {"c4_train": c4_train["launches"][key]},
+            "max_abs_err": row["max_abs_err"],
+            "tolerance": row["tolerance"],
+            "f32_max_abs_err": rows["float32"]["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "f32_ms": rows["float32"]["ms"],
+            "shape": shape + note})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

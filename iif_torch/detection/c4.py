@@ -1,37 +1,51 @@
-"""Faster R-CNN R50-C4 and its inference pass: port of
+"""Faster R-CNN R50-C4, its training loss and its inference pass: port of
 ``iif_tpu/detection/c4.py`` (``C4BBoxHead``, ``C4FasterRCNN``,
-``c4_anchor_generator``, ``c4_simple_test``), mmdet's
+``c4_anchor_generator``, ``c4_loss``, ``c4_simple_test``), mmdet's
 ``faster_rcnn_r50_caffe_c4`` layout:
 
 - the backbone is ResNet stages 1-3 (``num_stages=3``): one C4 map at
   stride 16 with 1024 channels;
 - the RPN runs on that one level with 15 anchors a cell (scales 2-32 of
   the stride-16 base, ratios 0.5/1/2);
-- RoIAlign 14x14 on C4 (kernel K3 on the card), then res5 per RoI as the
-  shared head (``ResLayer``, stride 2 -> 7x7), then the mean over 7x7 and
-  the linear ``fc_cls`` / class-specific ``fc_reg``.
+- RoIAlign 14x14 on C4 (kernel K3 on the card, and its backward K4 in
+  training), then res5 per RoI as the shared head (``ResLayer``, stride
+  2 -> 7x7), then the mean over 7x7 and the linear ``fc_cls`` /
+  class-specific ``fc_reg``.
 
 State_dict names are mmdet's: ``backbone.*``, ``rpn_head.*``,
 ``roi_head.shared_head.layer4.{i}.*``, ``roi_head.bbox_head.fc_cls|fc_reg``.
-Each stage of ``c4_simple_test`` is a named ``record_function`` span, so a
-``torch.profiler`` trace splits a request by stage.
+Each stage of ``c4_loss`` and ``c4_simple_test`` is a named
+``record_function`` span, so a ``torch.profiler`` trace splits a step or a
+request by stage.
+
+The JAX ``c4_loss`` reads its RoI features with ``ops/roi_align.py::
+roi_align``, the XLA gather, and differentiates it as a scatter-add; K3
+and K4 compute exactly that function (``roi_align_pallas`` and the
+backward of ``roi_align_pallas_grad`` without the TPU's window), so both
+the serving and the training path take them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
 
-from iif_torch.detection.bbox_head import bbox_head_get_bboxes
+from iif_torch.detection.bbox_head import (
+    bbox_head_get_bboxes,
+    bbox_head_loss,
+    bbox_targets,
+)
 from iif_torch.detection.detector import (
     _DEPTH_LAYERS,
     _DTYPES,
     DetTestCfg,
+    DetTrainCfg,
     normalize_if_uint8,
 )
-from iif_torch.detection.rpn import RPNHead, rpn_proposals
+from iif_torch.detection.rpn import RPNHead, rpn_loss, rpn_proposals
 from iif_torch.models.resnet import ResLayer, ResNet
 from iif_torch.ops.anchors import AnchorGenerator
 from iif_torch.ops.roi_align import roi_align
@@ -126,12 +140,97 @@ class C4FasterRCNN(nn.Module):
                 c4_anchor_generator().grid_anchors([tuple(feat_hw)])]
         return self._anchors[key]
 
+    def train_anchors(self, img_hw: Tuple[int, int],
+                      feat_hw: Tuple[int, int], device
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The C4 level's anchors (A, 4) and their inside-the-image flags
+        (A,) (``c4.py:143-148``), built once per canvas and map size."""
+        key = ("train", tuple(img_hw), tuple(feat_hw), str(device))
+        if key not in self._anchors:
+            gen = c4_anchor_generator()
+            self._anchors[key] = (
+                torch.from_numpy(gen.grid_anchors([tuple(feat_hw)])[0]
+                                 ).to(device),
+                torch.from_numpy(np.asarray(gen.valid_flags(
+                    [tuple(feat_hw)], tuple(img_hw))[0])).to(device))
+        return self._anchors[key]
+
 
 def c4_anchor_generator() -> AnchorGenerator:
     """The C4 RPN anchors: scales [2, 4, 8, 16, 32] on the one stride-16
     level, ratios [0.5, 1, 2]."""
     return AnchorGenerator(strides=[16], ratios=[0.5, 1.0, 2.0],
                            scales=[2.0, 4.0, 8.0, 16.0, 32.0])
+
+
+def c4_loss(
+    model: C4FasterRCNN,
+    batch: Dict[str, torch.Tensor],
+    loss_cls,
+    cfg: DetTrainCfg = DetTrainCfg(),
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, Any]]:
+    """Forward and every loss of one batch (``c4.py:121-189``): the C4
+    trunk, the one-level RPN loss, proposals from the detached RPN
+    outputs, the sampled RoIs' targets, RoIAlign 14x14 on the C4 map (K3
+    forward, K4 backward on the card), res5 per RoI and the bbox head.
+
+    batch: ``image`` (B, H, W, 3) uint8 or normalised float,
+    ``gt_boxes`` (B, G, 4), ``gt_labels`` (B, G), ``gt_valid`` (B, G).
+    The samplers draw their noise from ``generator``, or take it from
+    ``noise``: ``{"rpn": (pos, neg)}`` each (B, A) and ``{"rcnn": (pos,
+    neg)}`` each (B, G + P), as ``maskrcnn_loss`` takes it.
+
+    Returns (total, losses, aux): ``losses`` has the JAX package's keys
+    (``loss_cls``, ``loss_bbox``, ``loss_rpn_cls``, ``loss_rpn_bbox``);
+    ``aux`` is empty: the JAX package's carries the BN statistics, which
+    ``norm_eval`` leaves as they are."""
+    noise = noise or {}
+    images = batch["image"]
+    b, img_h, img_w, _ = images.shape
+    dev = images.device
+    gt_boxes, gt_valid = batch["gt_boxes"], batch["gt_valid"]
+
+    with record_function("backbone"):
+        feat = model.extract_feat(images)
+    with record_function("rpn_loss"):
+        cls_scores, bbox_preds = model.forward_rpn(feat)
+        anchors, anchor_valid = model.train_anchors(
+            (img_h, img_w), feat.shape[2:], dev)
+        l_rpn_cls, l_rpn_bbox = rpn_loss(
+            cls_scores, bbox_preds, anchors, anchor_valid, gt_boxes,
+            gt_valid, num_samples=cfg.rpn_num_samples,
+            pos_fraction=cfg.rpn_pos_fraction, noise=noise.get("rpn"),
+            generator=generator)
+    with record_function("rpn_proposals"):
+        proposals, _, prop_valid = rpn_proposals(
+            [s.detach() for s in cls_scores],
+            [d.detach() for d in bbox_preds], [anchors], (img_h, img_w),
+            nms_pre=cfg.rpn_nms_pre, max_per_img=cfg.rpn_max_per_img,
+            nms_iou=cfg.rpn_nms_iou)
+    with record_function("bbox_targets"):
+        tgts = bbox_targets(
+            proposals, prop_valid, gt_boxes, batch["gt_labels"], gt_valid,
+            model.num_classes, num_samples=cfg.rcnn_num_samples,
+            pos_fraction=cfg.rcnn_pos_fraction, noise=noise.get("rcnn"),
+            generator=generator)
+        r = cfg.rcnn_num_samples
+        batch_idx = torch.arange(b, dtype=torch.float32,
+                                 device=dev).repeat_interleave(r)
+        rois5 = torch.cat([batch_idx[:, None], tgts.rois.reshape(-1, 4)], 1)
+    with record_function("roi_align"):
+        roi_feats = roi_align(feat.permute(0, 2, 3, 1), rois5, (14, 14),
+                              spatial_scale=1.0 / 16)
+    with record_function("shared_head"):
+        shared = model.forward_shared(roi_feats)
+    with record_function("bbox_head_loss"):
+        cls_score, bbox_pred, _ = model.forward_bbox(shared)
+        l_cls, l_bbox = bbox_head_loss(cls_score, bbox_pred, tgts, loss_cls,
+                                       model.num_classes)
+    losses = {"loss_cls": l_cls, "loss_bbox": l_bbox,
+              "loss_rpn_cls": l_rpn_cls, "loss_rpn_bbox": l_rpn_bbox}
+    return sum(losses.values()), losses, {}
 
 
 @torch.inference_mode()

@@ -70,7 +70,8 @@ def build_loss_cls(cfg_loss: Dict[str, Any], dataset, num_classes: int):
         return DetIIFLoss(weights=w)
     if kind != "DetCrossEntropyLoss":
         raise NotImplementedError(f"loss {kind!r} is not ported")
-    return DetCrossEntropyLoss(num_classes=num_classes)
+    return DetCrossEntropyLoss(num_classes=num_classes,
+                               use_sigmoid=cfg_loss.get("use_sigmoid", False))
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> None:

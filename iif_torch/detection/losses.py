@@ -5,7 +5,8 @@
 Per-class weights come from a reference-format CSV (row 0 is a background
 placeholder, dropped; the background weight 1.0 is appended) or from class
 frequencies. Training loss: CE(score x weights, label); inference
-activation: softmax(score x weights) in f32.
+activation: softmax(score x weights) in f32. ``DetCrossEntropyLoss`` is
+the plain softmax CE of the stock configs (Faster R-CNN C4).
 """
 from __future__ import annotations
 
@@ -110,15 +111,43 @@ class DetIIFLoss:
 
 
 class DetCrossEntropyLoss:
-    """Plain (C+1)-way CE: at inference, a softmax over the logits."""
+    """Plain (C+1)-way CE (the stock mmdet configs' ``CrossEntropyLoss``,
+    ``iif_tpu/detection/losses.py:184-205``): per-RoI softmax CE in f32,
+    weighted, summed and divided by ``avg_factor`` (at least 1); at
+    inference, a softmax over the logits. ``use_sigmoid`` (per-channel
+    BCE) is not ported."""
 
     custom_activation = False
 
-    def __init__(self, num_classes: int = 0):
+    def __init__(self, num_classes: int = 0, loss_weight: float = 1.0,
+                 use_sigmoid: bool = False):
+        if use_sigmoid:
+            raise NotImplementedError(
+                "DetCrossEntropyLoss(use_sigmoid=True) is not ported")
         self.num_classes = num_classes
+        self.loss_weight = loss_weight
 
     def to(self, device) -> "DetCrossEntropyLoss":
         return self
+
+    def __call__(self, cls_score: torch.Tensor, labels: torch.Tensor,
+                 weight: Optional[torch.Tensor] = None,
+                 avg_factor: Optional[torch.Tensor] = None,
+                 reduction: str = "mean") -> torch.Tensor:
+        # softmax_cross_entropy (iif_tpu/losses/ce.py:13): logsumexp minus
+        # the true logit, in f32
+        logits = cls_score.float()
+        per = torch.logsumexp(logits, dim=-1) - logits.gather(
+            -1, labels.long()[..., None])[..., 0]
+        if weight is not None:
+            per = per * weight.to(per.dtype)
+        if reduction == "none":
+            return self.loss_weight * per
+        if avg_factor is None:
+            avg_factor = (per.new_tensor(float(per.numel())) if weight is None
+                          else weight.sum())
+        return self.loss_weight * per.sum() / torch.clamp(
+            torch.as_tensor(avg_factor, dtype=per.dtype), min=1.0)
 
     def get_activation(self, cls_score: torch.Tensor) -> torch.Tensor:
         return torch.softmax(cls_score.float(), dim=-1)

@@ -1,7 +1,10 @@
 """Detection trainer: port of ``iif_tpu/engine/detection.py``
 (``DetectionTrainer`` with ``init_state`` and one train step, and
-``frozen_backbone_mask``) for the MaskRCNN loss, with ``grad_accum=1`` and
-no EMA, FASA, Seesaw or Dynamic R-CNN state.
+``frozen_backbone_mask``) for the MaskRCNN and the Faster R-CNN C4
+losses, with ``grad_accum=1`` and no EMA, FASA, Seesaw or Dynamic R-CNN
+state. The step dispatches on the model as the JAX trainer does
+(``engine/detection.py:307-312`` for C4): ``maskrcnn_loss`` for
+``MaskRCNN``, ``c4_loss`` for ``C4FasterRCNN``; other families raise.
 
 The JAX step folds the step number into its base key; here each step
 draws its sampling noise from a ``torch.Generator`` seeded from
@@ -18,6 +21,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 from torch.profiler import record_function
 
+from iif_torch.detection.c4 import C4FasterRCNN, c4_loss
 from iif_torch.detection.detector import (
     DetTrainCfg,
     MaskRCNN,
@@ -50,16 +54,18 @@ class DetTrainState:
 
 
 class DetectionTrainer:
-    """Trains ``model`` (on ``device``, default the card) with
-    ``loss_cls`` under ``lr_schedule``; ``optimizer_cfg`` is the config's
-    ``optimizer`` dict (type, momentum, weight_decay)."""
+    """Trains ``model`` (a ``MaskRCNN`` or a ``C4FasterRCNN``, on
+    ``device``, default the card) with ``loss_cls`` under
+    ``lr_schedule``; ``optimizer_cfg`` is the config's ``optimizer`` dict
+    (type, momentum, weight_decay)."""
 
-    def __init__(self, model: MaskRCNN, loss_cls,
+    def __init__(self, model: Union[MaskRCNN, C4FasterRCNN], loss_cls,
                  lr_schedule: Callable[[int], float],
                  train_cfg: DetTrainCfg = DetTrainCfg(),
                  optimizer_cfg: Optional[Dict[str, Any]] = None,
                  seed: int = 0, device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
+        self.loss_fn = _loss_fn(model)
         self.model = model.to(self.device).train()
         self.loss_cls = loss_cls.to(self.device)
         self.lr_schedule = lr_schedule
@@ -80,15 +86,15 @@ class DetectionTrainer:
                    batch: Dict[str, Any],
                    noise: Optional[Dict[str, Any]] = None
                    ) -> Tuple[DetTrainState, Dict[str, torch.Tensor]]:
-        """One SGD step on ``batch`` (see ``maskrcnn_loss`` for its keys;
-        ``noise`` as there). Updates the model and ``state`` in place and
-        returns them with the metrics."""
+        """One SGD step on ``batch`` (see ``maskrcnn_loss`` or ``c4_loss``
+        for its keys; ``noise`` as there). Updates the model and ``state``
+        in place and returns them with the metrics."""
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
         self.model.train()
         generator = torch.Generator(device=self.device).manual_seed(
             ((self.seed & 0xFFFFFFFF) << 32) | (state.step & 0xFFFFFFFF))
-        total, losses, _ = maskrcnn_loss(
+        total, losses, _ = self.loss_fn(
             self.model, batch, self.loss_cls, self.train_cfg,
             generator=generator, noise=noise)
         with record_function("backward"):
@@ -103,13 +109,24 @@ class DetectionTrainer:
         return state, metrics
 
 
+def _loss_fn(model) -> Callable:
+    """The loss of the model's family, as the JAX trainer dispatches."""
+    if isinstance(model, C4FasterRCNN):
+        return c4_loss
+    if isinstance(model, MaskRCNN):
+        return maskrcnn_loss
+    raise NotImplementedError(
+        f"training {type(model).__name__} is not ported")
+
+
 def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
                         device: Union[str, torch.device] = "cuda"
                         ) -> DetectionTrainer:
-    """A trainer for a MaskRCNN config as ``iif_tpu/cli/train_det.py``
-    builds one (model, ``train_cfg`` with the pipeline's ``mask_stride``,
-    the step-decay schedule with warm-up, SGD), with seeded random
-    weights: the port loads no checkpoint for training yet. Raises
+    """A trainer for a MaskRCNN or a Faster R-CNN C4 config as
+    ``iif_tpu/cli/train_det.py`` builds one (model, ``train_cfg``, for
+    MaskRCNN with the pipeline's ``mask_stride``, the step-decay schedule
+    with warm-up, SGD), with seeded random weights: the port loads no
+    checkpoint for training yet. Raises
     ``NotImplementedError`` for what the port does not train with:
     gradient accumulation, gradient clipping, parameter-wise optimizer
     settings and other LR policies."""
@@ -128,8 +145,9 @@ def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
     model = build_detector(dict(cfg.model))
     random_init_(model, torch.Generator().manual_seed(seed))
     tc = dict(cfg.get("train_cfg", {}))
-    tc.setdefault("mask_gt_stride",
-                  cfg.get("pipeline", {}).get("mask_stride", 1))
+    if isinstance(model, MaskRCNN):
+        tc.setdefault("mask_gt_stride",
+                      cfg.get("pipeline", {}).get("mask_stride", 1))
     schedule = build_lr_schedule(
         ocfg["lr"], steps_per_epoch, milestones=lcfg.get("milestones", []),
         lr_gamma=lcfg.get("gamma", 0.1),

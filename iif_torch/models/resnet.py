@@ -155,9 +155,11 @@ class ResLayer(nn.Module):
     """res5 as a per-RoI trunk, the C4 shared head: ``n_blocks``
     bottlenecks of width 512 on the 1024-channel C4 features, under the
     name ``layer4``, the first with stride 2 and the projection shortcut
-    (14x14 RoIs -> 7x7). Its BatchNorms run on their running statistics;
-    training with batch statistics (``norm_eval=False``) is not ported,
-    as in ``ResNet``."""
+    (14x14 RoIs -> 7x7). Its BatchNorms run on their running statistics
+    in flax's op order in f32, in training too (``norm_eval=True``, as
+    the C4 config trains it): the convs and the BN affine parameters
+    train, the statistics stay. Training with batch statistics
+    (``norm_eval=False``) is not ported, as in ``ResNet``."""
 
     def __init__(self, n_blocks: int = 3, norm_eval: bool = True,
                  compute_dtype: Optional[torch.dtype] = None):

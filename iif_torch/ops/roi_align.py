@@ -1,28 +1,36 @@
-"""Single-level RoIAlign: the CUDA kernel's wrapper and its plain PyTorch
-version.
+"""Single-level RoIAlign: the CUDA kernels' wrappers, the autograd pairing
+and the plain PyTorch versions.
 
-K3 replaces ``iif_tpu/ops/pallas/roi_align_kernel.py::roi_align_pallas``
-(the TPU kernel ``_make_kernel`` / ``_pallas_call``), whose function off
-the TPU is ``iif_tpu/ops/roi_align.py::roi_align``. Both JAX functions
-have one counterpart here, ``roi_align``: each RoI's box = roi *
-spatial_scale - offset (0.5 when ``aligned``; without it the box is at
-least one cell wide and high), out_h x out_w bins of s x s samples
-(``sampling_ratio`` 0 means 2), each sample clamped into the map and
-read bilinearly with the high corner clamped, the mean over samples. The
-result is float32 whatever the features' dtype, as in JAX (the Pallas
+K3, the forward, replaces ``iif_tpu/ops/pallas/roi_align_kernel.py::
+roi_align_pallas`` (the TPU kernel ``_make_kernel`` / ``_pallas_call``),
+whose function off the TPU is ``iif_tpu/ops/roi_align.py::roi_align``.
+Both JAX functions have one counterpart here, ``roi_align``: each RoI's
+box = roi * spatial_scale - offset (0.5 when ``aligned``; without it the
+box is at least one cell wide and high), out_h x out_w bins of s x s
+samples (``sampling_ratio`` 0 means 2), each sample clamped into the map
+and read bilinearly with the high corner clamped, the mean over samples.
+The result is float32 whatever the features' dtype, as in JAX (the Pallas
 call casts to f32, the XLA path promotes bf16 x f32 weights).
 
-None of the TPU machinery is semantics: the 32x40 DMA window (which
-clamps the taps of wider RoIs), the 8-aligned x origin and the one-hot
-MXU matmuls have no counterpart, and non-square outputs take the kernel
-too. The kernel lives in ``iif_torch/csrc/roi_align.cu``. Its least time
-on an H100 is set by HBM bytes, mostly the f32 output it writes; as
-written, its instructions per channel pair set its pace (``PERF.md``).
+K4, the backward, replaces ``roi_align_pallas_grad``'s VJP (``_rapg_bwd``;
+TPU kernel ``_make_bwd_kernel`` / ``_pallas_bwd_call``): the map's
+gradient, none for the RoIs. The JAX C4 loss differentiates the XLA
+gather of ``ops/roi_align.py::roi_align`` (a scatter-add), which is the
+function that ``_rapg_bwd`` computes off the TPU and K4 computes here: f32
+sums into a zeroed (B, H, W, C) buffer, cast once to the map's dtype.
 
-K3 has no backward here (its TPU backward K4 is not ported): on a CUDA
-tensor that requires a gradient ``roi_align`` raises rather than return
-a result that autograd cannot differentiate. On a CPU tensor it is the
-plain version, which autograd differentiates.
+None of the TPU machinery is semantics: the 32x40 DMA window (which
+clamps the taps of wider RoIs), the 8-aligned x origin, the one-hot MXU
+matmuls and the backward's read-add-write of a window have no
+counterpart, and non-square outputs take the kernels too. Both kernels
+live in ``iif_torch/csrc/roi_align.cu``. Their least time on an H100 is
+set by HBM bytes, mostly the f32 output K3 writes and the f32 gradient K4
+reads; as written, K3's instructions per channel pair and K4's atomics
+set their pace (``PERF.md``).
+
+``roi_align`` is differentiable in the map: on a CPU tensor it is the
+plain version under autograd; on a CUDA tensor it is ``RoIAlign``, whose
+forward launches K3 and whose backward launches K4, or it raises.
 """
 from __future__ import annotations
 
@@ -114,14 +122,35 @@ def roi_align_reference(features: torch.Tensor, rois: torch.Tensor,
     return taps.mean(dim=(2, 4))
 
 
-def _fn():
-    fn = build.load(KERNEL).iif_roi_align_fwd
+def roi_align_grad_reference(features: torch.Tensor, rois: torch.Tensor,
+                             grad_out: torch.Tensor, output_size=(7, 7),
+                             spatial_scale: float = 1.0,
+                             sampling_ratio: int = 0,
+                             aligned: bool = True) -> torch.Tensor:
+    """Plain version of K4: ``torch.autograd.grad`` of
+    ``roi_align_reference`` at ``grad_out`` (R, oh, ow, C), taken on an f32
+    copy of the map so that the sums run in f32, then cast to the map's
+    dtype. Only the map's shape and dtype matter."""
+    with torch.enable_grad():
+        f32 = features.detach().float().requires_grad_(True)
+        out = roi_align_reference(f32, rois, output_size, spatial_scale,
+                                  sampling_ratio, aligned)
+        grad, = torch.autograd.grad(out, f32, grad_out.float())
+    return grad.to(features.dtype)
+
+
+def _fn(symbol: str, argtypes: list):
+    fn = getattr(build.load(KERNEL), symbol)
     if fn.argtypes is None:
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([vp] + [ci] * 4 + [vp] * 2 + [ci] * 4 + [cf]
-                       + [ci] * 2 + [vp])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = [_VP] + [_CI] * 4 + [_VP] * 2 + [_CI] * 4 + [_CF] + [_CI] * 2 \
+    + [_VP]
+_BWD_ARGS = [_VP] + [_CI] * 4 + [_VP] * 2 + [_CI] * 4 + [_CF, _CI, _VP]
 
 
 def _check_cuda_inputs(features, rois, out_h, out_w, s):
@@ -143,10 +172,11 @@ def _check_cuda_inputs(features, rois, out_h, out_w, s):
     if max(out_h, out_w) * s > MAX_TAPS:
         raise ValueError(f"kernel takes at most {MAX_TAPS} samples a side, "
                          f"got {max(out_h, out_w)} x {s}")
-    if features.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the single-level RoIAlign backward (TPU kernel K4) is not "
-            "ported: no gradient through K3")
+
+
+def _count(counter: Dict[Tuple[int, int], int], out_h: int,
+           out_w: int) -> None:
+    counter[(out_h, out_w)] = counter.get((out_h, out_w), 0) + 1
 
 
 def _launch(features, rois, out_h, out_w, s, spatial_scale, aligned):
@@ -158,25 +188,69 @@ def _launch(features, rois, out_h, out_w, s, spatial_scale, aligned):
     if r == 0:
         return out
     with torch.cuda.device(rois.device):    # the launch uses the current one
-        err = _fn()(features.data_ptr(), bsz, h, w, c, rois.data_ptr(),
-                    out.data_ptr(), r, out_h, out_w, s, float(spatial_scale),
-                    int(bool(aligned)), _DTYPES[features.dtype],
-                    torch.cuda.current_stream(rois.device).cuda_stream)
+        err = _fn("iif_roi_align_fwd", _FWD_ARGS)(
+            features.data_ptr(), bsz, h, w, c, rois.data_ptr(),
+            out.data_ptr(), r, out_h, out_w, s, float(spatial_scale),
+            int(bool(aligned)), _DTYPES[features.dtype],
+            torch.cuda.current_stream(rois.device).cuda_stream)
     if err:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
-    counts = roi_align.launches_by_size
-    counts[(out_h, out_w)] = counts.get((out_h, out_w), 0) + 1
+    _count(roi_align.launches_by_size, out_h, out_w)
     return out
+
+
+def _launch_bwd(shape, dtype, rois, grad_out, out_h, out_w, s,
+                spatial_scale, aligned):
+    """K4 on validated inputs: the map's gradient, (B, H, W, C) in
+    ``dtype`` (summed in f32, cast once)."""
+    bsz, h, w, c = shape
+    dev = rois.device
+    acc = torch.empty(shape, dtype=torch.float32, device=dev)
+    g = grad_out.float().contiguous()
+    with torch.cuda.device(dev):
+        err = _fn("iif_roi_align_bwd", _BWD_ARGS)(
+            acc.data_ptr(), bsz, h, w, c, rois.data_ptr(), g.data_ptr(),
+            rois.shape[0], out_h, out_w, s, float(spatial_scale),
+            int(bool(aligned)), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{KERNEL} backward launch failed: cudaError "
+                           f"{err}")
+    _count(grad_launches_by_size, out_h, out_w)
+    return acc.to(dtype)
+
+
+class RoIAlign(torch.autograd.Function):
+    """K3 forward, K4 backward, on CUDA tensors. The RoIs get no
+    gradient, as in the reference CUDA op; the map is not saved, only its
+    shape and dtype."""
+
+    @staticmethod
+    def forward(ctx, features, rois, out_h, out_w, sampling_ratio,
+                spatial_scale, aligned):
+        out = _launch(features, rois, out_h, out_w, sampling_ratio,
+                      spatial_scale, aligned)
+        ctx.save_for_backward(rois)
+        ctx.shape = tuple(features.shape)
+        ctx.dtype = features.dtype
+        ctx.cfg = (out_h, out_w, sampling_ratio, spatial_scale, aligned)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rois, = ctx.saved_tensors
+        grad = _launch_bwd(ctx.shape, ctx.dtype, rois, grad_out, *ctx.cfg)
+        return (grad,) + (None,) * 6
 
 
 def roi_align(features: torch.Tensor, rois: torch.Tensor,
               output_size=(7, 7), spatial_scale: float = 1.0,
               sampling_ratio: int = 0, aligned: bool = True) -> torch.Tensor:
-    """Single-level RoIAlign, (R, oh, ow, C) float32.
+    """Single-level RoIAlign, (R, oh, ow, C) float32, differentiable in
+    ``features``.
 
-    CPU tensors take ``roi_align_reference``; CUDA tensors take K3 (a
-    contiguous NHWC map in f32 or bf16, an even channel count, no
-    gradient) or raise."""
+    CPU tensors take ``roi_align_reference`` under autograd; CUDA tensors
+    take ``RoIAlign`` (K3 forward, K4 backward; a contiguous NHWC map in
+    f32 or bf16, an even channel count) or raise."""
     out_h, out_w = _pair(output_size)
     s = sampling_ratio if sampling_ratio > 0 else 2
     if rois.device.type == "cpu":
@@ -185,12 +259,16 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
     if rois.device.type != "cuda":
         raise ValueError(f"unsupported device {rois.device}")
     _check_cuda_inputs(features, rois, out_h, out_w, s)
-    return _launch(features, rois, out_h, out_w, s, spatial_scale, aligned)
+    return RoIAlign.apply(features, rois, out_h, out_w, s,
+                          float(spatial_scale), bool(aligned))
 
 
-# K3's launches per (out_h, out_w); CPU calls do not count.
+# Kernel launches per (out_h, out_w): K3's, and K4's (launched only by
+# ``RoIAlign.backward``); CPU calls do not count.
 roi_align.launches_by_size: Dict[Tuple[int, int], int] = {}
+grad_launches_by_size: Dict[Tuple[int, int], int] = {}
 
 
 def reset_launches() -> None:
     roi_align.launches_by_size = {}
+    grad_launches_by_size.clear()

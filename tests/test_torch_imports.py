@@ -99,11 +99,36 @@ def test_c4_entry_points_raise_without_cuda():
     from iif_torch.cli import serve
     from iif_torch.detection.inference import init_detector
 
+    from iif_torch.config import Config
+    from iif_torch.engine.detection import trainer_from_config
+
     cfg = str(REPO / "configs/faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py")
     with pytest.raises(RuntimeError, match="CUDA"):
         init_detector(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main([cfg])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer_from_config(Config.fromfile(cfg), None, 100)
+
+
+def test_single_level_roi_align_pairs_k3_with_k4():
+    """K4 is ported: ``roi_align`` on a CUDA tensor goes through the
+    autograd ``RoIAlign`` (K3 forward, K4 backward), with K4's plain
+    version and its launch counter beside K3's; the C4 path has its
+    training loss."""
+    from iif_torch.detection.c4 import C4FasterRCNN, c4_loss
+    from iif_torch.ops import roi_align as mod
+
+    assert issubclass(mod.RoIAlign, torch.autograd.Function)
+    assert callable(mod.roi_align_grad_reference)
+    mod.grad_launches_by_size[(14, 14)] = 1
+    mod.roi_align.launches_by_size[(14, 14)] = 1
+    mod.reset_launches()
+    assert mod.grad_launches_by_size == {}
+    assert mod.roi_align.launches_by_size == {}
+    assert callable(c4_loss) and hasattr(C4FasterRCNN, "train_anchors")
+    src = (REPO / "iif_torch" / "csrc" / "roi_align.cu").read_text()
+    assert 'extern "C" int iif_roi_align_bwd(' in src
 
 
 def test_kernel_wrapper_raises_on_non_cpu_non_cuda():

@@ -1,7 +1,8 @@
 """Single-level RoIAlign (kernel K3's plain version, reached through
 ``roi_align`` on CPU tensors) against the JAX package's jitted
 ``iif_tpu.ops.roi_align.roi_align`` and against ``roi_align_pallas``,
-which off the TPU runs that same function. The CUDA kernel K3 itself runs
+which off the TPU runs that same function. The CUDA kernels K3 and its
+backward K4 (through autograd, against ``roi_align_grad_reference``) run
 only on the card (``cuda`` marker):
 
     python3 -m pytest tests/test_torch_roi_align_single.py -m cuda -q
@@ -11,7 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from iif_torch.ops.roi_align import roi_align, roi_align_reference
+from iif_torch.ops.roi_align import (
+    grad_launches_by_size,
+    roi_align,
+    roi_align_grad_reference,
+    roi_align_reference,
+)
 
 torch.set_num_threads(1)
 
@@ -211,3 +217,57 @@ def test_k3_matches_plain_on_card_options(out, sr, aligned, dtype):
     torch.cuda.synchronize()
     want = roi_align_reference(feats, rois, out, 1 / 4, sr, aligned)
     assert (got - want).abs().max().item() <= 1e-5
+
+
+def _k4_matches_plain(feats, rois, out, scale, sr, aligned, chunk=128):
+    """K4, run by autograd through ``roi_align``, against the plain
+    backward (in chunks of RoIs, summed in f32): f32 within 1e-5 of the
+    largest gradient (its atomics add in another order on every run);
+    bf16 besides within 2^-8 of each value (one rounding of an f32 sum
+    that may differ in its last bits)."""
+    leaf = feats.clone().requires_grad_()
+    g = torch.randn((rois.shape[0],) + out + (feats.shape[-1],),
+                    generator=torch.Generator("cuda").manual_seed(0),
+                    device="cuda")
+    before = grad_launches_by_size.get(out, 0)
+    roi_align(leaf, rois, out, scale, sr, aligned).backward(g)
+    torch.cuda.synchronize()
+    assert grad_launches_by_size[out] == before + 1
+    got = leaf.grad
+    assert got.dtype == feats.dtype and got.shape == feats.shape
+    want = torch.zeros(feats.shape, device="cuda")
+    for i in range(0, rois.shape[0], chunk):
+        want += roi_align_grad_reference(feats.float(), rois[i:i + chunk],
+                                         g[i:i + chunk], out, scale, sr,
+                                         aligned)
+    bound = 1e-5 * want.abs().max()
+    if feats.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -8 * want.abs()
+    assert ((got.float() - want).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain_on_card_c4_train_shapes(dtype):
+    """K4 at the C4 training shapes: B=4, the 50x84x1024 map, R=2048
+    RoIs, 14x14, s=0, aligned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.RandomState(10)
+    feats, rois = _k3_case(rng, 4, C4_MAP, 1024, 2048, 1 / 16, dtype)
+    _k4_matches_plain(feats, rois, (14, 14), 1 / 16, 0, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out,sr,aligned", [((14, 14), 0, False),
+                                            ((7, 7), 1, True),
+                                            ((7, 7), 4, True),
+                                            ((5, 9), 2, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain_on_card_options(out, sr, aligned, dtype):
+    """K4's other options on a small map, as K3's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.RandomState(20 + sr + out[1])
+    feats, rois = _k3_case(rng, 2, (12, 20), 64, 200, 1 / 4, dtype)
+    _k4_matches_plain(feats, rois, out, 1 / 4, sr, aligned)
