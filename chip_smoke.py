@@ -5,11 +5,17 @@
 
 1. Environment: the card's name and power limit, the torch and CUDA
    versions, the TF32 switches (both off for every timing), and the build
-   of every kernel from ``iif_torch/csrc``.
+   of every kernel from ``iif_torch/csrc`` with each instantiation's
+   registers and spill bytes (``ptxas -v``).
 2. Kernel phase: the multi-level RoIAlign forward K1 against its plain
    PyTorch version at the LVIS serving shapes (levels 200x336 .. 25x42,
    B=2, C=256; 7x7 with R=2000 and 14x14 with R=600; f32 and bf16), with
-   the error, time, plain-version time and the HBM bound; then at the
+   the error, the path the wrapper chose (``vec8`` or ``pair``), the
+   wrapper call's time from CUDA events (``ms``, as every kernel's) and
+   the kernel's device time from a CUDA graph of its launches
+   (``kernel_ms``), the plain-version time and the HBM bound, and once
+   more at 7x7 on levels that are views 2 elements into their storage
+   (the two-channel path); then at the
    training shapes (B=4; 7x7 with R=2048 and 14x14 with R=512; heavily
    overlapping RoIs and the aspect 8/12/1/8/16 ones; f32 and bf16) K1
    again and its backward K2, through ``RoIAlignML.backward`` as autograd
@@ -18,8 +24,9 @@
    at the C4 serving shapes (the C4 map (B, 50, 84, 1024), B = 1 and 2,
    R = 1000 B RoIs shaped like the serving proposals with border, outside,
    sub-cell and wider-than-40-cell ones, 14x14 at 1/16; f32 and bf16
-   maps), likewise, and on small cases of its other options (unaligned,
-   sampling ratios 1 and 4, non-square bins). Then at the C4 training
+   maps), likewise (at B=1 also on a map 2 elements into its storage),
+   and on small cases of its other options (unaligned, sampling ratios 1
+   and 4, non-square bins). Then at the C4 training
    shapes (B=4, R=2048 RoIs spread like the proposals plus border,
    outside, sub-cell, whole-map and zero-size ones and a pile on one
    cell, 14x14; f32 and bf16 maps): K3 again, and its backward K4,
@@ -46,7 +53,8 @@
 6. Training phase: the trainer of the MaskRCNN config (SGD lr 0.02, 500
    warm-up iterations, frozen stem and stage 1, ``norm_eval``,
    ``rpn_nms_pre=2000``, masks at stride 2) from ``trainer_from_config``,
-   seeded random weights, on a seeded synthetic batch of 4 uint8 800x1344
+   seeded fresh weights as JAX's ``model.init`` draws them
+   (``fresh_init_``), on a seeded synthetic batch of 4 uint8 800x1344
    canvases with 100 gt slots (about 30% valid) and bit-packed masks at
    400x672: 3 warm-up steps and TRAIN_STEPS timed ones (ms/step and
    img/s, median and spread), every step's losses, K1's and K2's launches
@@ -121,6 +129,48 @@ def check(ok, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+def check_vec8(what, by_path, launched):
+    """Every one of a main path's ``launched`` forward launches took the
+    eight-channel instantiation (the wrappers count launches by
+    ``kernel_path``)."""
+    check(by_path == ({"vec8": launched} if launched else {}),
+          f"{what}: {launched} launches, all on vec8, got {by_path}")
+
+
+def ptxas_report(reports):
+    """Registers and spill bytes of every kernel instantiation, from each
+    source's ``ptxas -v`` report, names demangled by ``c++filt`` where the
+    machine has it."""
+    import re
+
+    funcs = []
+    for source, rep in reports.items():
+        fn = None
+        for line in rep.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                fn = {"source": source, "function": m.group(1)}
+                funcs.append(fn)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn is not None:
+                fn["spill_stores"] = int(m.group(1))
+                fn["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None:
+                fn["registers"] = int(m.group(1))
+    filt = shutil.which("c++filt")
+    if filt and funcs:
+        names = subprocess.run(
+            [filt], input="\n".join(f["function"] for f in funcs),
+            capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(funcs):
+            for fn, name in zip(funcs, names):
+                fn["function"] = name
+    return funcs
+
+
 def cuda_ms(fn, iters=10, reps=20):
     """Per-call time: CUDA events around ``iters`` back-to-back calls, the
     median over ``reps`` such runs, after a warm-up."""
@@ -142,6 +192,26 @@ def cuda_ms(fn, iters=10, reps=20):
     return statistics.median(per_call)
 
 
+def graph_ms(fn, iters=10, reps=20):
+    """Device time of one call of ``fn``, a kernel's launch with no other
+    work: ``iters`` calls captured in a CUDA graph and replayed between
+    CUDA events, the median over ``reps`` replays. Unlike ``cuda_ms`` of
+    a wrapper call, the host's time to issue a call does not enter."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(graph.replay, iters=1, reps=reps) / iters
+
+
 def spread(ms):
     """Median and spread of host-clock times."""
     ms = sorted(ms)
@@ -154,6 +224,18 @@ def bf16_ulp(x):
 
     e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
     return torch.pow(2.0, e - 7)
+
+
+def offset_view(t, offset):
+    """``t`` copied into a contiguous view that starts ``offset`` elements
+    into its storage: 2 elements in, the forward kernels take their
+    two-channel path."""
+    import torch
+
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def make_rois(rng, r, device):
@@ -243,14 +325,27 @@ def roi_align_grad_bound(feats, rois, o, s=2):
     return _bound(nbytes, r * o * o * c * s * s * 12) + (touched,)
 
 
-def k1_row(torch, feats32, rois, o, dt):
+def k1_row(torch, feats32, rois, o, dt, offset=0):
     """K1 against its plain version on one set of inputs, in ``dt``: the
-    error, K1's time, the plain version's and the bound."""
-    from iif_torch.ops.roi_align_ml import roi_align_ml, roi_align_ml_reference
+    error, K1's path, the wrapper call's time (``ms``, with the level
+    mapping and the host's time to issue it) and its kernel's device time
+    (``kernel_ms``, ``graph_ms`` of its launch), the plain version's
+    time and the bound. With an ``offset``, each level is a view that many
+    elements into its storage."""
+    from iif_torch.ops.roi_align import kernel_path
+    from iif_torch.ops.roi_align_ml import (
+        _launch_fwd,
+        _roi_meta,
+        roi_align_ml,
+        roi_align_ml_reference,
+    )
 
     feats = [f.to(dt) for f in feats32]
+    if offset:
+        feats = [offset_view(f, offset) for f in feats]
     got = roi_align_ml(feats, rois, (o, o))
     torch.cuda.synchronize()
+    path = kernel_path(*feats, got)
     want = roi_align_ml_reference(feats, rois, (o, o))
     err = (got.float() - want.to(dt).float()).abs().max().item()
     if dt == torch.float32:
@@ -262,16 +357,22 @@ def k1_row(torch, feats32, rois, o, dt):
         ulps = ((got.float() - cast).abs() / bf16_ulp(cast)).max().item()
         ok = ulps <= 1.0
         tol = "1 bf16 ulp of the value"
+    lvl, bidx = _roi_meta(rois, 4, 56.0)
+    kernel_ms = graph_ms(lambda: _launch_fwd(feats, rois, lvl, bidx, o, 2,
+                                             (4, 8, 16, 32)))
     ms = cuda_ms(lambda: roi_align_ml(feats, rois, (o, o)))
     plain_ms = cuda_ms(lambda: roi_align_ml_reference(
         feats, rois, (o, o)).to(dt))
     bound_ms, bound_by, touched = roi_align_bound(feats, rois, o)
     row = {"o": o, "R": rois.shape[0], "B": feats[0].shape[0],
-           "dtype": str(dt).split(".")[-1],
+           "dtype": str(dt).split(".")[-1], "path": path,
+           "storage_offset": offset,
            "max_abs_err": err, "max_err_ulps": ulps,
-           "tolerance": tol, "ok": ok, "ms": ms,
+           "tolerance": tol, "ok": ok, "ms": ms, "kernel_ms": kernel_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "touched_feature_rows": touched}
+           "bound_by": bound_by, "bound_share": bound_ms / ms,
+           "kernel_bound_share": bound_ms / kernel_ms,
+           "touched_feature_rows": touched}
     log("kernel K1", json.dumps(row))
     if not ok:
         raise RuntimeError(f"roi_align_ml disagrees: {row}")
@@ -279,7 +380,9 @@ def k1_row(torch, feats32, rois, o, dt):
 
 
 def kernel_phase(torch, np):
-    """K1 against its plain version at the serving shapes (B=2)."""
+    """K1 against its plain version at the serving shapes (B=2), then its
+    two-channel path there: the bf16 levels as views 2 elements into their
+    storage, at 7x7."""
     rng = np.random.RandomState(0)
     feats32 = [torch.tensor(rng.randn(2, h, w, 256), dtype=torch.float32,
                             device="cuda") for h, w in LVIS_LEVELS]
@@ -288,7 +391,12 @@ def kernel_phase(torch, np):
         rois = make_rois(rng, r, "cuda")
         for dt in (torch.float32, torch.bfloat16):
             row = k1_row(torch, feats32, rois, o, dt)
+            check(row["path"] == "vec8", "K1 takes vec8 at the LVIS shapes")
             results[(o, row["dtype"])] = row
+        if o == 7:
+            row = k1_row(torch, feats32, rois, o, torch.bfloat16, offset=2)
+            check(row["path"] == "pair", "K1 takes pair on an offset view")
+            results["pair"] = row
     return results
 
 
@@ -453,11 +561,54 @@ def plain_single_chunked(feat, rois, out, scale, sr=0, aligned=True):
         for i in range(0, rois.shape[0], PLAIN_CHUNK)])
 
 
+def k3_row(torch, feat, rois, b):
+    """K3 against its plain version at the C4 serving shapes on one map:
+    the error, K3's path, the wrapper call's time (``ms``) and its
+    kernel's device time (``kernel_ms``, ``graph_ms`` of its launch), the
+    plain version's (chunked) and the bound."""
+    from iif_torch.ops.roi_align import _launch, kernel_path, roi_align
+
+    def k3():
+        return roi_align(feat, rois, (14, 14), 1 / 16)
+
+    got = k3()
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32, "K3 writes f32")
+    path = kernel_path(feat, got)
+    want = plain_single_chunked(feat, rois, (14, 14), 1 / 16)
+    err = (got - want).abs().max().item()
+    del got, want
+    kernel_ms = graph_ms(lambda: _launch(feat, rois, 14, 14, 2, 1 / 16,
+                                         True))
+    ms = cuda_ms(k3)
+    plain_ms = cuda_ms(lambda: plain_single_chunked(
+        feat, rois, (14, 14), 1 / 16), iters=1, reps=3)
+    bound_ms, bound_by, touched = roi_align_single_bound(
+        feat, rois, 14, 14, 2, 1 / 16, True)
+    row = {"o": 14, "R": rois.shape[0], "B": b,
+           "dtype": str(feat.dtype).split(".")[-1], "path": path,
+           "storage_offset": feat.storage_offset(), "max_abs_err": err,
+           "tolerance": F32_TOL, "ok": err <= F32_TOL, "ms": ms,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "plain_note": f"the plain version in chunks of "
+                         f"{PLAIN_CHUNK} RoIs over all R",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / ms,
+           "kernel_bound_share": bound_ms / kernel_ms,
+           "touched_feature_rows": touched}
+    log("kernel K3", json.dumps(row))
+    if not row["ok"]:
+        raise RuntimeError(f"K3 disagrees with its plain version: {row}")
+    return row
+
+
 def kernel_k3_phase(torch, np):
     """K3 against its plain version at the C4 serving shapes (the C4 map
     (B, 50, 84, 1024), R = 1000 B, 14x14 at 1/16, s=0, aligned; B = 1, 2;
     f32 and bf16 maps), with the error, K3's time, the plain version's
-    (chunked) and the bound; then small cases of its other options."""
+    (chunked) and the bound; at B=1 its two-channel path too (the bf16
+    map as a view 2 elements into its storage); then small cases of its
+    other options."""
     from iif_torch.ops.roi_align import roi_align
 
     rng = np.random.RandomState(4)
@@ -467,35 +618,14 @@ def kernel_k3_phase(torch, np):
                            dtype=torch.float32, device="cuda")
         rois = make_c4_rois(rng, C4_ROIS * b, b, "cuda")
         for dt in (torch.float32, torch.bfloat16):
-            feat = f32.to(dt)
-
-            def k3():
-                return roi_align(feat, rois, (14, 14), 1 / 16)
-
-            got = k3()
-            torch.cuda.synchronize()
-            check(got.dtype == torch.float32, "K3 writes f32")
-            want = plain_single_chunked(feat, rois, (14, 14), 1 / 16)
-            err = (got - want).abs().max().item()
-            del got, want
-            ms = cuda_ms(k3)
-            plain_ms = cuda_ms(lambda: plain_single_chunked(
-                feat, rois, (14, 14), 1 / 16), iters=1, reps=3)
-            bound_ms, bound_by, touched = roi_align_single_bound(
-                feat, rois, 14, 14, 2, 1 / 16, True)
-            row = {"o": 14, "R": rois.shape[0], "B": b,
-                   "dtype": str(dt).split(".")[-1], "max_abs_err": err,
-                   "tolerance": F32_TOL, "ok": err <= F32_TOL, "ms": ms,
-                   "plain_ms": plain_ms,
-                   "plain_note": f"the plain version in chunks of "
-                                 f"{PLAIN_CHUNK} RoIs over all R",
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "touched_feature_rows": touched}
-            log("kernel K3", json.dumps(row))
-            if not row["ok"]:
-                raise RuntimeError(f"K3 disagrees with its plain version: "
-                                   f"{row}")
+            row = k3_row(torch, f32.to(dt), rois, b)
+            check(row["path"] == "vec8", "K3 takes vec8 at the C4 shapes")
             rows[(b, row["dtype"])] = row
+        if b == 1:
+            row = k3_row(torch, offset_view(f32.to(torch.bfloat16), 2),
+                         rois, b)
+            check(row["path"] == "pair", "K3 takes pair on an offset view")
+            rows["pair"] = row
     # the other options on the C4 map at C=256: unaligned with sub-cell
     # RoIs (the min-size clamp), sampling ratios 1 and 4, non-square bins
     extra = {}
@@ -573,7 +703,7 @@ def kernel_k4_phase(torch, np):
     version, and K4, through ``RoIAlign.backward`` as autograd runs it in
     a training step, against the plain backward, each with its error,
     time, the plain version's time and the bound."""
-    from iif_torch.ops.roi_align import roi_align
+    from iif_torch.ops.roi_align import _launch, kernel_path, roi_align
 
     rng = np.random.RandomState(5)
     f32 = torch.tensor(rng.randn(TRAIN_BATCH, *C4_MAP, C4_CHANNELS),
@@ -596,19 +726,25 @@ def kernel_k4_phase(torch, np):
 
         got = k3_call()
         torch.cuda.synchronize()
+        path = kernel_path(feat, got)
         err = (got - plain_single_chunked(feat.detach(), rois, (14, 14),
                                           1 / 16)).abs().max().item()
         del got
         bound_ms, bound_by, touched = roi_align_single_bound(
             feat, rois, 14, 14, 2, 1 / 16, True)
+        kernel_ms = graph_ms(lambda: _launch(feat.detach(), rois, 14, 14,
+                                             2, 1 / 16, True))
+        ms = cuda_ms(k3_call)
         row = {"o": 14, "R": C4_TRAIN_ROIS, "B": TRAIN_BATCH, "dtype": name,
-               "max_abs_err": err, "tolerance": F32_TOL,
-               "ok": err <= F32_TOL, "ms": cuda_ms(k3_call),
+               "path": path, "max_abs_err": err, "tolerance": F32_TOL,
+               "ok": err <= F32_TOL, "ms": ms, "kernel_ms": kernel_ms,
                "plain_ms": cuda_ms(lambda: plain_single_chunked(
                    feat.detach(), rois, (14, 14), 1 / 16), iters=1, reps=3),
                "plain_note": f"the plain version in chunks of "
                              f"{PLAIN_CHUNK} RoIs over all R",
                "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / ms,
+               "kernel_bound_share": bound_ms / kernel_ms,
                "touched_feature_rows": touched}
         log("kernel K3 train", json.dumps(row))
         if not row["ok"]:
@@ -734,6 +870,7 @@ def serving_phase(torch, np):
                                           masks=False))
         b1_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {"b1": dict(roi_align_ml.launches_by_size)}
+    kernel_paths = {"b1": dict(roi_align_ml.launches_by_path)}
     check(not grad_launches_by_size,
           "serving launches K1 alone, no K2")
     b1_syncs = nms.host_syncs / REQUESTS
@@ -747,19 +884,24 @@ def serving_phase(torch, np):
         batched += inference_detector_batch(det, pair, pad_to=2, masks=False)
         b2_ms.append((time.perf_counter() - t0) * 1e3 / 2)
     launches["b2"] = dict(roi_align_ml.launches_by_size)
+    kernel_paths["b2"] = dict(roi_align_ml.launches_by_path)
     b2_syncs = nms.host_syncs / REQUESTS
     # b1 with pasted masks
     reset_launches()
     with_masks = inference_detector(det, images[0], masks=True)
     torch.cuda.synchronize()
     launches["b1_masks"] = dict(roi_align_ml.launches_by_size)
+    kernel_paths["b1_masks"] = dict(roi_align_ml.launches_by_path)
     log("main path launches", json.dumps(launches),
+        "by kernel path", json.dumps(kernel_paths),
         "nms host syncs per image", json.dumps({"b1": b1_syncs,
                                                 "b2": b2_syncs}))
     for path, counts in launches.items():
         if not (counts.get(7, 0) > 0 and counts.get(14, 0) > 0):
             raise RuntimeError(
                 f"RoIAlign kernel not on the {path} path: {counts}")
+        check_vec8(f"K1 on the {path} path", kernel_paths[path],
+                   sum(counts.values()))
 
     for res in results + batched + [with_masks]:
         check(res["boxes"].shape == (300, 4) and res["valid"].any(),
@@ -973,7 +1115,8 @@ def c4_serving_phase(torch, np):
                                     .values()),
                 "K4": sum(k3_mod.grad_launches_by_size.values()),
                 "K1": sum(k12_mod.roi_align_ml.launches_by_size.values()),
-                "K2": sum(k12_mod.grad_launches_by_size.values())}
+                "K2": sum(k12_mod.grad_launches_by_size.values()),
+                "K3_by_kernel_path": dict(k3_mod.roi_align.launches_by_path)}
 
     def reset():
         k3_mod.reset_launches()
@@ -1007,6 +1150,7 @@ def c4_serving_phase(torch, np):
                 and got["K1"] == got["K2"] == got["K4"] == 0):
             raise RuntimeError(f"C4 {path} path: K3 must launch once a "
                                f"forward ({n}) and K1/K2/K4 never: {got}")
+        check_vec8(f"K3 on the C4 {path} path", got["K3_by_kernel_path"], n)
     for res in results + batched:
         check(set(res) == {"boxes", "scores", "labels", "valid"}
               and res["boxes"].shape == (100, 4), "100 boxes, no masks")
@@ -1265,11 +1409,14 @@ def training_phase(torch, np):
         lambda: {"K1": dict(roi_align_ml.launches_by_size),
                  "K2": dict(grad_launches_by_size)})
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
-    log("training path launches", json.dumps(launches))
+    log("training path launches", json.dumps(launches), "K1 by kernel path",
+        json.dumps(roi_align_ml.launches_by_path))
     for k, counts_k in launches.items():
         if counts_k != {7: n_steps, 14: n_steps}:
             raise RuntimeError(f"{k} not launched once a size a step on the "
                                f"training path: {counts_k}")
+    check_vec8("K1 on the training path", roi_align_ml.launches_by_path,
+               2 * n_steps)
     moved = {n: (params[n].detach() - v).abs().max().item()
              for n, v in watch.items()}
     log("parameter change", json.dumps(moved))
@@ -1357,12 +1504,15 @@ def c4_training_phase(torch, np):
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
     log("C4 training path launches",
         json.dumps({k: {str(s): n for s, n in v.items()}
-                    for k, v in launches.items()}))
+                    for k, v in launches.items()}), "K3 by kernel path",
+        json.dumps(k34_mod.roi_align.launches_by_path))
     want = {"K3": {(14, 14): n_steps}, "K4": {(14, 14): n_steps},
             "K1": {}, "K2": {}}
     if launches != want:
         raise RuntimeError(f"C4 training path: K3 and K4 must launch once a "
                            f"step at 14x14 and K1/K2 never: {launches}")
+    check_vec8("K3 on the C4 training path",
+               k34_mod.roi_align.launches_by_path, n_steps)
     moved = {n: (params[n].detach() - v).abs().max().item()
              for n, v in watch.items()}
     log("C4 parameter change", json.dumps(moved))
@@ -1413,10 +1563,9 @@ def main() -> int:
     t0 = time.time()
     reports = build.build_all()
     log(f"kernel build s {time.time() - t0:.3f}")
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+    ptxas = ptxas_report(reports)
+    for fn in ptxas:
+        log("ptxas", json.dumps(fn))
 
     import iif_torch.detection.c4 as c4_mod
     import iif_torch.detection.detector as detector_mod
@@ -1466,9 +1615,20 @@ def main() -> int:
                 "f32_tolerance": F32_TOL,
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": None,
+                "library_ms": None, "kernel_ms": row["kernel_ms"],
+                "path": row["path"], "bound_share": row["bound_share"],
+                "kernel_bound_share": row["kernel_bound_share"],
+                "f32_ms": rows[(o, "float32")]["ms"],
+                "f32_kernel_ms": rows[(o, "float32")]["kernel_ms"],
                 "shape": f"R={row['R']} bf16 LVIS levels B={row['B']} "
                          "C=256"})
+            if o == 7 and "pair" in rows:
+                pair = rows["pair"]
+                kernels[-1]["pair"] = {
+                    k: pair[k] for k in ("ms", "kernel_ms", "bound_share",
+                                         "kernel_bound_share",
+                                         "max_abs_err", "max_err_ulps",
+                                         "storage_offset")}
     for o in (7, 14):
         row = kern_grad[(o, "bfloat16")]
         kernels.append({
@@ -1496,8 +1656,17 @@ def main() -> int:
         "options_max_abs_err": max(k3_options.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": None,
-        "b2": {k: row2[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "library_ms": None, "kernel_ms": row["kernel_ms"],
+        "path": row["path"], "bound_share": row["bound_share"],
+        "kernel_bound_share": row["kernel_bound_share"],
+        "f32_ms": k3_rows[(1, "float32")]["ms"],
+        "f32_kernel_ms": k3_rows[(1, "float32")]["kernel_ms"],
+        "b2": {k: row2[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                    "bound_ms", "bound_share",
+                                    "kernel_bound_share")},
+        "pair": {k: k3_rows["pair"][k] for k in (
+            "ms", "kernel_ms", "bound_share", "kernel_bound_share",
+            "max_abs_err", "storage_offset")},
         "shape": "R=1000 B=1 bf16 C4 map 50x84x1024 -> f32 (b2: R=2000 "
                  "B=2); plain version in chunks of 100 RoIs"})
     # K3 and K4 at the C4 training shapes, with the C4 training path's
@@ -1522,6 +1691,10 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "f32_ms": rows["float32"]["ms"],
             "shape": shape + note})
+        if key == "K3":
+            kernels[-1].update({k: row[k] for k in (
+                "kernel_ms", "path", "bound_share", "kernel_bound_share")})
+            kernels[-1]["f32_kernel_ms"] = rows["float32"]["kernel_ms"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

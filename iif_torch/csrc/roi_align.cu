@@ -11,6 +11,34 @@
 // read bilinearly with the high corner clamped, the mean over samples.
 // The output is float32 for float32 and bfloat16 features alike, as in JAX.
 //
+// K3's bound is HBM bytes: at the C4 shapes its f32 output (0.8 GB for
+// 1000 RoIs of 14x14x1024) dwarfs the map (8.6 MB bf16, held in L2), so
+// the least time is the output's write, 0.24 ms an image. Writing that
+// output at the HBM rate leaves a budget of about 40 thread instructions
+// for every f32 element it writes; a first version of this kernel (two
+// channels a thread, 16 four-byte corner loads, taps reloaded and 1 - frac
+// recomputed at every sample, 12 float operations a sample) spent about
+// 100, and ran faster on f32 maps than on bf16 ones. The design
+// (roi_align_common.cuh):
+//   1. Eight channels a thread (vec8): a corner is one 16-byte load of a
+//      bf16 map or two of an f32 one, a bin's output two float4 stores.
+//      Any other even C, or a map or output not 16-byte aligned, takes
+//      the same kernel at two channels a thread (pair); the wrapper
+//      chooses.
+//   2. One block a RoI: its x and y taps (cells, 1 - frac, frac) are
+//      computed once into shared memory. At C=1024 a block is 2 x 128
+//      threads; each set of 128 spans C and takes every other bin row.
+//   3. s = 2 unrolled, the last x tap's blended columns held in registers.
+//      Any other s takes K1's loop (bin_row_plain) at run time.
+//   4. For s = 2, the separable blend as explicit FMAs: 6 float operations
+//      a sample and channel. It sums in another order than the plain
+//      version: the two differ in the last bits (9.5e-7 at the C4 shapes).
+//      K1's loop, in the plain version's order, took 1.13-1.44x as long
+//      there (PERF.md).
+//   5. The f32 output written with streaming stores (__stcs, evict-first):
+//      it passes through L2 without pushing the map out; plain stores
+//      took 7-13% longer (PERF.md).
+//
 // K4 replaces the backward of roi_align_pallas_grad (_rapg_bwd,
 // _pallas_bwd_call / _make_bwd_kernel): the gradient with respect to the
 // map, none for the RoIs. Off the TPU that VJP differentiates the XLA
@@ -21,19 +49,12 @@
 // 32x40 window (nor its clamp of wider RoIs' taps), no 8-aligned origin,
 // no one-hot matmuls, no read-add-write DMA of a window.
 //
-// Layout: the map is a contiguous (B, H, W, C) tensor, so one bilinear
+// K4's layout: the map is a contiguous (B, H, W, C) tensor, so one bilinear
 // corner is a contiguous row of C values. A block owns one (RoI, bin row);
-// its threads split C two channels at a time, so each corner read (K3) or
-// add (K4) is one coalesced row. The row's sample geometry is computed
-// once per block into shared memory. Sums run in f32.
-//
-// Bound: HBM bytes. At the C4 shapes the f32 output of K3 (and the f32 g
-// that K4 reads) is far larger than the map, so the least time is that of
-// the output write (K3) or the g read (K4). K3 does not reach it: f32
-// maps, twice the bytes, run faster than bf16 ones, so the work per
-// channel pair (16 corner loads, the bf16 unpacking, the weights) sets its
-// pace; more channels a thread is the next step (see PERF.md). K4's pace
-// is set by its atomics: a 14x14 RoI of 2x2 samples has 784 samples of 4
+// its threads split C two channels at a time, so each corner add is one
+// coalesced row. The row's sample geometry is computed once per block into
+// shared memory. Its bound is HBM bytes, the f32 g it reads; its pace is
+// set by its atomics: a 14x14 RoI of 2x2 samples has 784 samples of 4
 // corners, while a 32 px RoI at stride 16 covers about 3x3 cells. So K4
 // merges before it adds: the weight of a map row is summed over the
 // block's y samples once (into shared memory), and each thread sums its
@@ -42,69 +63,26 @@
 // The weights factor as wy * wx, so the merged sums are the same function
 // in another f32 order.
 //
-// The multi-level kernels' tested source (roi_align_ml.cu) stays as it
-// is; the tap geometry below is the same. This file is built with
-// -fmad=false and keeps the float op order of the plain version: a
-// contracted multiply-add in a sample position can move floor() onto the
-// neighbouring cell, and K4 reads exactly the taps that K3 read.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// This file is built with -fmad=false: K3 and K4 take their taps from the
+// one make_tap (roi_align_common.cuh), so K4 scatters into exactly the
+// corners K3 read.
+#include "roi_align_common.cuh"
 
 namespace {
 
-constexpr int kMaxTaps = 64;  // output side * sampling ratio
-
-template <typename T>
-struct Pair;
-
-template <>
-struct Pair<float> {
-  static __device__ __forceinline__ float2 load(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-};
-
-template <>
-struct Pair<__nv_bfloat16> {
-  static __device__ __forceinline__ float2 load(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-};
-
-// One sample axis: clamp into [0, n-1], floor, high corner clamped.
-struct Tap {
-  int lo;
-  int hi;
-  float frac;
-};
-
-__device__ __forceinline__ Tap make_tap(float start, float bin, int t, int s,
-                                        float last) {
-  const float pos = ((float)t + 0.5f) / (float)s;
-  float v = start + bin * pos;
-  v = fminf(fmaxf(v, 0.0f), last);
-  const float lo = floorf(v);
-  const float hi = fminf(lo + 1.0f, last);
-  Tap tap;
-  tap.lo = (int)lo;
-  tap.hi = (int)hi;
-  tap.frac = v - lo;
-  return tap;
-}
-
-template <typename T>
-__global__ void roi_align_fwd_kernel(const T* __restrict__ feat, int batch,
-                                     int height, int width, int channels,
-                                     const float* __restrict__ rois,
-                                     float* __restrict__ out, int out_h,
-                                     int out_w, int samples,
-                                     float spatial_scale, int aligned) {
-  __shared__ Tap ytap[kMaxTaps];
-  __shared__ Tap xtap[kMaxTaps];
+// K3. One block a RoI; blockDim.x = lanes x rows (block_shape).
+template <typename T, int V, int S>
+__global__ void __launch_bounds__(kMaxThreads)
+    roi_align_fwd_kernel(const T* __restrict__ feat, int batch, int height,
+                         int width, int channels,
+                         const float* __restrict__ rois,
+                         float* __restrict__ out, int out_h, int out_w,
+                         int samples, float spatial_scale, int aligned,
+                         int lanes) {
+  __shared__ Weights xw[kMaxTaps];
+  __shared__ Weights yw[kMaxTaps];
 
   const int r = blockIdx.x;
-  const int ph = blockIdx.y;
   const float* roi = rois + (size_t)r * 5;
   // truncated as astype(int32), clamped into the batch as JAX's gather
   int b = (int)roi[0];
@@ -122,49 +100,37 @@ __global__ void roi_align_fwd_kernel(const T* __restrict__ feat, int batch,
   }
   const float bin_w = roi_w / (float)out_w;
   const float bin_h = roi_h / (float)out_h;
-  const int taps_x = out_w * samples;
 
-  for (int t = threadIdx.x; t < taps_x; t += blockDim.x) {
-    xtap[t] = make_tap(x1, bin_w, t, samples, (float)(width - 1));
+  for (int t = threadIdx.x; t < out_w * samples; t += blockDim.x) {
+    xw[t] = weights_of(make_tap(x1, bin_w, t, samples, (float)(width - 1)));
   }
-  for (int t = threadIdx.x; t < samples; t += blockDim.x) {
-    ytap[t] = make_tap(y1, bin_h, ph * samples + t, samples,
-                       (float)(height - 1));
+  for (int t = threadIdx.x; t < out_h * samples; t += blockDim.x) {
+    yw[t] = weights_of(make_tap(y1, bin_h, t, samples, (float)(height - 1)));
   }
   __syncthreads();
 
-  const T* map = feat + (size_t)b * height * width * channels;
-  float* dst = out + ((size_t)r * out_h + ph) * out_w * channels;
-  const float count = (float)(samples * samples);
+  forward_roi<T, float, V, S, true>(
+      feat + (size_t)b * height * width * channels, (size_t)width * channels,
+      channels, xw, yw, out_h, out_w, samples, lanes,
+      out + (size_t)r * out_h * out_w * channels);
+}
 
-  for (int c = 2 * threadIdx.x; c < channels; c += 2 * blockDim.x) {
-    for (int pw = 0; pw < out_w; ++pw) {
-      float acc0 = 0.0f;
-      float acc1 = 0.0f;
-      for (int iy = 0; iy < samples; ++iy) {
-        const Tap ty = ytap[iy];
-        const float wy1 = ty.frac;
-        const float wy0 = 1.0f - wy1;
-        const T* row0 = map + (size_t)ty.lo * width * channels + c;
-        const T* row1 = map + (size_t)ty.hi * width * channels + c;
-        for (int ix = 0; ix < samples; ++ix) {
-          const Tap tx = xtap[pw * samples + ix];
-          const float wx1 = tx.frac;
-          const float wx0 = 1.0f - wx1;
-          const float2 v00 = Pair<T>::load(row0 + (size_t)tx.lo * channels);
-          const float2 v01 = Pair<T>::load(row0 + (size_t)tx.hi * channels);
-          const float2 v10 = Pair<T>::load(row1 + (size_t)tx.lo * channels);
-          const float2 v11 = Pair<T>::load(row1 + (size_t)tx.hi * channels);
-          acc0 += v00.x * wy0 * wx0 + v01.x * wy0 * wx1 + v10.x * wy1 * wx0 +
-                  v11.x * wy1 * wx1;
-          acc1 += v00.y * wy0 * wx0 + v01.y * wy0 * wx1 + v10.y * wy1 * wx0 +
-                  v11.y * wy1 * wx1;
-        }
-      }
-      *reinterpret_cast<float2*>(dst + (size_t)pw * channels + c) =
-          make_float2(acc0 / count, acc1 / count);
-    }
+template <typename T, int V>
+cudaError_t launch_fwd(const T* feat, int batch, int height, int width,
+                       int channels, const float* rois, float* out,
+                       int num_rois, int out_h, int out_w, int samples,
+                       float spatial_scale, int aligned, cudaStream_t st) {
+  const BlockShape shape = block_shape(channels, V, out_h);
+  if (samples == 2) {
+    roi_align_fwd_kernel<T, V, 2><<<num_rois, shape.threads, 0, st>>>(
+        feat, batch, height, width, channels, rois, out, out_h, out_w,
+        samples, spatial_scale, aligned, shape.lanes);
+  } else {
+    roi_align_fwd_kernel<T, V, 0><<<num_rois, shape.threads, 0, st>>>(
+        feat, batch, height, width, channels, rois, out, out_h, out_w,
+        samples, spatial_scale, aligned, shape.lanes);
   }
+  return cudaGetLastError();
 }
 
 // Two channels added into the accumulator at p (8-byte aligned): one
@@ -188,8 +154,8 @@ __device__ __forceinline__ void flush_cell(float* map, const int* rows,
   }
 }
 
-// K4. Same grid and sample geometry as K3. Sums in an order that changes
-// from run to run (atomics from overlapping RoIs and bins).
+// K4. One block a (RoI, bin row), on K3's taps. Sums in an order that
+// changes from run to run (atomics from overlapping RoIs and bins).
 __global__ void roi_align_bwd_kernel(float* __restrict__ acc, int batch,
                                      int height, int width, int channels,
                                      const float* __restrict__ rois,
@@ -297,39 +263,48 @@ __global__ void roi_align_bwd_kernel(float* __restrict__ acc, int batch,
   }
 }
 
-int block_threads(int channels) {
-  int threads = ((channels / 2 + 31) / 32) * 32;
-  return threads > 256 ? 256 : threads;
-}
-
 }  // namespace
 
 // feat: (B, H, W, C) in dtype (0 = float32, 1 = bfloat16); rois: (R, 5)
-// float32; out: (R, out_h, out_w, C) float32. Returns the cudaError_t of
-// the launch.
+// float32; out: (R, out_h, out_w, C) float32. vec8 (8 channels a thread)
+// needs C % 8 == 0 and feat and out 16-byte aligned; otherwise 2 channels
+// a thread. Returns the cudaError_t of the launch.
 extern "C" int iif_roi_align_fwd(const void* feat, int batch, int height,
                                  int width, int channels, const float* rois,
                                  float* out, int num_rois, int out_h,
                                  int out_w, int samples, float spatial_scale,
-                                 int aligned, int dtype, void* stream) {
+                                 int aligned, int dtype, int vec8,
+                                 void* stream) {
   if (num_rois == 0) return (int)cudaSuccess;
   if (out_h * samples > kMaxTaps || out_w * samples > kMaxTaps ||
-      samples < 1 || (channels & 1) || batch < 1 || dtype < 0 || dtype > 1) {
+      samples < 1 || out_h < 1 || out_w < 1 || channels < 2 ||
+      (channels & 1) || batch < 1 || dtype < 0 || dtype > 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const int threads = block_threads(channels);
-  const dim3 grid(num_rois, out_h);
+  if (vec8 && ((channels & 7) || !aligned16(feat) || !aligned16(out))) {
+    return (int)cudaErrorMisalignedAddress;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    roi_align_fwd_kernel<float><<<grid, threads, 0, st>>>(
-        static_cast<const float*>(feat), batch, height, width, channels, rois,
-        out, out_h, out_w, samples, spatial_scale, aligned);
-  } else {
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(feat), batch, height, width,
-        channels, rois, out, out_h, out_w, samples, spatial_scale, aligned);
+    const float* f = static_cast<const float*>(feat);
+    return (int)(vec8 ? launch_fwd<float, 8>(
+                            f, batch, height, width, channels, rois, out,
+                            num_rois, out_h, out_w, samples, spatial_scale,
+                            aligned, st)
+                      : launch_fwd<float, 2>(
+                            f, batch, height, width, channels, rois, out,
+                            num_rois, out_h, out_w, samples, spatial_scale,
+                            aligned, st));
   }
-  return (int)cudaGetLastError();
+  const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(feat);
+  return (int)(vec8 ? launch_fwd<__nv_bfloat16, 8>(
+                          f, batch, height, width, channels, rois, out,
+                          num_rois, out_h, out_w, samples, spatial_scale,
+                          aligned, st)
+                    : launch_fwd<__nv_bfloat16, 2>(
+                          f, batch, height, width, channels, rois, out,
+                          num_rois, out_h, out_w, samples, spatial_scale,
+                          aligned, st));
 }
 
 // K4. acc: (B, H, W, C) float32, zeroed here, receives the map's gradient

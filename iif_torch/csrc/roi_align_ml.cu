@@ -5,7 +5,8 @@
 // (the Pallas TPU kernel _make_ml_kernel / _pallas_ml_call). It computes
 // what SingleRoIExtractor._flat_gather computes
 // (iif_tpu/detection/roi_extractor.py:97-166), none of the TPU machinery:
-// no DMA windows, no edge padding, no one-hot matmuls, no misfit cap.
+// no DMA windows, no edge padding, no one-hot matmuls, no misfit cap. Sums
+// run in f32 and the result is rounded once into the feature type.
 //
 // K2 replaces the custom VJP's backward (_ml_bwd, _pallas_ml_bwd_call,
 // _make_ml_bwd_kernel): the gradient of K1 with respect to the four
@@ -14,29 +15,44 @@
 // K1's sample positions, clamps and high-corner snap. On the card no RoI
 // misfits a window, so every RoI takes the kernel.
 //
-// Layout: every FPN level is a contiguous (B, H_l, W_l, C) tensor, so one
-// bilinear corner is a contiguous row of C values. A block owns one
+// K1's bound is HBM bytes: the feature rows its samples touch, read once,
+// and its (R, out, out, C) output, written once (0.038 ms at 7x7, R=2000,
+// bf16, C=256). A first version ran at a fifth of it: one block a (RoI,
+// bin row) of 128 threads paid the RoI's geometry and a __syncthreads to
+// write one 7-wide bin row (14,000 blocks at R=2000), and its threads
+// spent about 100 instructions on each output element (two channels a
+// thread, 16 four-byte corner loads, 12 float operations a sample). The
+// design, shared with K3 (roi_align_common.cuh):
+//   1. Eight channels a thread (vec8): a corner is one 16-byte load of a
+//      bf16 level, a bin's bf16 output one 16-byte store. Any other even
+//      C, or a level or output not 16-byte aligned, takes the same kernel
+//      at two channels a thread (pair); the wrapper chooses.
+//   2. One block a RoI: its x and y taps are computed once into shared
+//      memory. At C=256 one warp spans C and takes a bin row: 7 warps, a
+//      7x7 RoI in one pass, a 14x14 one in two.
+//   3. s = 2 unrolled.
+//   4. Not the separable FMA blend that K3 takes: K1's bf16 output is held
+//      within one bf16 ulp of the plain version's, and summed in another
+//      order a near-zero output moves by more (seen on the card). K1 keeps
+//      the plain version's op order (12 float operations a sample and
+//      channel) and equals it.
+//   5. Plain stores: K3's streaming stores were measured on its f32
+//      output only (0.8 GB at R=1000); K1 writes 50 MB at 7x7, R=2000.
+//
+// K2's layout: every FPN level is a contiguous (B, H_l, W_l, C) tensor, so
+// one bilinear corner is a contiguous row of C values. A block owns one
 // (RoI, bin row); its threads split C two channels at a time, so each
-// corner read is one coalesced row. Sums run in f32 and the result is
-// rounded once into the feature type.
+// corner add is one coalesced row.
 //
-// Bound: HBM bytes (the unique feature bytes read plus the output
-// written); the arithmetic is a few FLOPs per byte. Neighbouring samples
-// share cells, so most corner reads after the first hit L1/L2.
-//
-// The per-sample geometry keeps the float op order of _flat_gather and
-// this file is built with -fmad=false: a contracted multiply-add there can
-// move floor() onto the neighbouring cell. The FPN level of each RoI comes
+// This file is built with -fmad=false and K1 and K2 take their taps from
+// the one make_tap (roi_align_common.cuh). The FPN level of each RoI comes
 // from the caller (the same map_roi_levels as the plain path), never from
 // a device log2f near a level boundary.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "roi_align_common.cuh"
 
 namespace {
 
 constexpr int kMaxLevels = 4;
-constexpr int kMaxTaps = 64;  // output_size * sampling_ratio per axis
 
 struct Levels {
   const void* ptr[kMaxLevels];
@@ -52,63 +68,18 @@ __device__ __forceinline__ V pick(const V (&arr)[kMaxLevels], int l) {
   return l == 0 ? arr[0] : l == 1 ? arr[1] : l == 2 ? arr[2] : arr[3];
 }
 
-template <typename T>
-struct Pair;
-
-template <>
-struct Pair<float> {
-  static __device__ __forceinline__ float2 load(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-  static __device__ __forceinline__ void store(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-};
-
-template <>
-struct Pair<__nv_bfloat16> {
-  static __device__ __forceinline__ float2 load(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float a,
-                                               float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-};
-
-// One sample axis: clamp into [0, n-1], floor, high corner clamped.
-struct Tap {
-  int lo;
-  int hi;
-  float frac;
-};
-
-__device__ __forceinline__ Tap make_tap(float start, float bin, int t, int s,
-                                        float last) {
-  const float pos = ((float)t + 0.5f) / (float)s;
-  float v = start + bin * pos;
-  v = fminf(fmaxf(v, 0.0f), last);
-  const float lo = floorf(v);
-  const float hi = fminf(lo + 1.0f, last);
-  Tap tap;
-  tap.lo = (int)lo;
-  tap.hi = (int)hi;
-  tap.frac = v - lo;
-  return tap;
-}
-
-template <typename T>
-__global__ void roi_align_ml_fwd_kernel(Levels lv,
-                                        const float* __restrict__ rois,
-                                        const int* __restrict__ lvl,
-                                        const int* __restrict__ bidx,
-                                        T* __restrict__ out, int channels,
-                                        int out_size, int samples) {
-  __shared__ Tap ytap[kMaxTaps];
-  __shared__ Tap xtap[kMaxTaps];
+// K1. One block a RoI; blockDim.x = lanes x rows (block_shape).
+template <typename T, int V, int S>
+__global__ void __launch_bounds__(kMaxThreads)
+    roi_align_ml_fwd_kernel(Levels lv, const float* __restrict__ rois,
+                            const int* __restrict__ lvl,
+                            const int* __restrict__ bidx,
+                            T* __restrict__ out, int channels, int out_size,
+                            int samples, int lanes) {
+  __shared__ Weights xw[kMaxTaps];
+  __shared__ Weights yw[kMaxTaps];
 
   const int r = blockIdx.x;
-  const int ph = blockIdx.y;
   const int l = lvl[r];
   const int height = pick(lv.h, l);
   const int width = pick(lv.w, l);
@@ -120,53 +91,37 @@ __global__ void roi_align_ml_fwd_kernel(Levels lv,
   const float y2 = roi[4] * scale - 0.5f;
   const float bin_w = (x2 - x1) / (float)out_size;
   const float bin_h = (y2 - y1) / (float)out_size;
-  const int taps_x = out_size * samples;
+  const int taps = out_size * samples;
 
-  for (int t = threadIdx.x; t < taps_x; t += blockDim.x) {
-    xtap[t] = make_tap(x1, bin_w, t, samples, (float)(width - 1));
-  }
-  for (int t = threadIdx.x; t < samples; t += blockDim.x) {
-    ytap[t] = make_tap(y1, bin_h, ph * samples + t, samples,
-                       (float)(height - 1));
+  for (int t = threadIdx.x; t < taps; t += blockDim.x) {
+    xw[t] = weights_of(make_tap(x1, bin_w, t, samples, (float)(width - 1)));
+    yw[t] = weights_of(make_tap(y1, bin_h, t, samples, (float)(height - 1)));
   }
   __syncthreads();
 
   const T* feat = static_cast<const T*>(pick(lv.ptr, l)) +
                   (size_t)bidx[r] * height * width * channels;
-  T* dst = out + ((size_t)r * out_size + ph) * out_size * channels;
-  const float count = (float)(samples * samples);
-
-  for (int c = 2 * threadIdx.x; c < channels; c += 2 * blockDim.x) {
-    for (int pw = 0; pw < out_size; ++pw) {
-      float acc0 = 0.0f;
-      float acc1 = 0.0f;
-      for (int iy = 0; iy < samples; ++iy) {
-        const Tap ty = ytap[iy];
-        const float wy1 = ty.frac;
-        const float wy0 = 1.0f - wy1;
-        const T* row0 = feat + (size_t)ty.lo * width * channels + c;
-        const T* row1 = feat + (size_t)ty.hi * width * channels + c;
-        for (int ix = 0; ix < samples; ++ix) {
-          const Tap tx = xtap[pw * samples + ix];
-          const float wx1 = tx.frac;
-          const float wx0 = 1.0f - wx1;
-          const float2 v00 = Pair<T>::load(row0 + (size_t)tx.lo * channels);
-          const float2 v01 = Pair<T>::load(row0 + (size_t)tx.hi * channels);
-          const float2 v10 = Pair<T>::load(row1 + (size_t)tx.lo * channels);
-          const float2 v11 = Pair<T>::load(row1 + (size_t)tx.hi * channels);
-          acc0 += v00.x * wy0 * wx0 + v01.x * wy0 * wx1 + v10.x * wy1 * wx0 +
-                  v11.x * wy1 * wx1;
-          acc1 += v00.y * wy0 * wx0 + v01.y * wy0 * wx1 + v10.y * wy1 * wx0 +
-                  v11.y * wy1 * wx1;
-        }
-      }
-      Pair<T>::store(dst + (size_t)pw * channels + c, acc0 / count,
-                     acc1 / count);
-    }
-  }
+  forward_roi<T, T, V, S, false>(
+      feat, (size_t)width * channels, channels, xw, yw, out_size, out_size,
+      samples, lanes, out + (size_t)r * out_size * out_size * channels);
 }
 
-// K2. Same grid and sample geometry as K1; each corner's share goes into
+template <typename T, int V>
+cudaError_t launch_fwd(const Levels& lv, const float* rois, const int* lvl,
+                       const int* bidx, T* out, int num_rois, int channels,
+                       int out_size, int samples, cudaStream_t st) {
+  const BlockShape shape = block_shape(channels, V, out_size);
+  if (samples == 2) {
+    roi_align_ml_fwd_kernel<T, V, 2><<<num_rois, shape.threads, 0, st>>>(
+        lv, rois, lvl, bidx, out, channels, out_size, samples, shape.lanes);
+  } else {
+    roi_align_ml_fwd_kernel<T, V, 0><<<num_rois, shape.threads, 0, st>>>(
+        lv, rois, lvl, bidx, out, channels, out_size, samples, shape.lanes);
+  }
+  return cudaGetLastError();
+}
+
+// K2. One block a (RoI, bin row), on K1's taps; each corner's share goes into
 // an f32 accumulator shaped like its level with atomicAdd, so overlapping
 // RoIs (and neighbouring samples of one RoI) add up in an order that
 // changes from run to run. Bound: the f32 read-modify-write of the
@@ -213,9 +168,10 @@ __global__ void roi_align_ml_bwd_kernel(Levels acc,
 
   for (int c = 2 * threadIdx.x; c < channels; c += 2 * blockDim.x) {
     for (int pw = 0; pw < out_size; ++pw) {
-      const float2 gv = Pair<T>::load(src + (size_t)pw * channels + c);
-      const float g0 = gv.x / count;
-      const float g1 = gv.y / count;
+      float gv[2];
+      Vec<T, 2>::load(src + (size_t)pw * channels + c, gv);
+      const float g0 = gv[0] / count;
+      const float g1 = gv[1] / count;
       for (int iy = 0; iy < samples; ++iy) {
         const Tap ty = ytap[iy];
         const float wy1 = ty.frac;
@@ -257,23 +213,21 @@ __global__ void cast_f32_bf16_kernel(const float* __restrict__ src,
   }
 }
 
-int block_threads(int channels) {
-  int threads = ((channels / 2 + 31) / 32) * 32;
-  return threads > 256 ? 256 : threads;
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16; out in the features' dtype. vec8 (8
+// channels a thread) needs C % 8 == 0 and every level and out 16-byte
+// aligned; otherwise 2 channels a thread. Returns the cudaError_t of the
+// launch.
 extern "C" int iif_roi_align_ml_fwd(
     const void* f0, const void* f1, const void* f2, const void* f3, int h0,
     int w0, int h1, int w1, int h2, int w2, int h3, int w3, float s0, float s1,
     float s2, float s3, const float* rois, const int* lvl, const int* bidx,
     void* out, int num_rois, int channels, int out_size, int samples,
-    int dtype, void* stream) {
+    int dtype, int vec8, void* stream) {
   if (num_rois == 0) return (int)cudaSuccess;
-  if (out_size * samples > kMaxTaps || (channels & 1) || dtype < 0 ||
-      dtype > 1) {
+  if (out_size * samples > kMaxTaps || samples < 1 || out_size < 1 ||
+      channels < 2 || (channels & 1) || dtype < 0 || dtype > 1) {
     return (int)cudaErrorInvalidValue;
   }
   Levels lv;
@@ -281,25 +235,32 @@ extern "C" int iif_roi_align_ml_fwd(
   const int hs[kMaxLevels] = {h0, h1, h2, h3};
   const int ws[kMaxLevels] = {w0, w1, w2, w3};
   const float ss[kMaxLevels] = {s0, s1, s2, s3};
+  bool vec_ok = (channels & 7) == 0 && aligned16(out);
   for (int i = 0; i < kMaxLevels; ++i) {
     lv.ptr[i] = ptrs[i];
     lv.h[i] = hs[i];
     lv.w[i] = ws[i];
     lv.stride[i] = ss[i];
+    vec_ok = vec_ok && aligned16(ptrs[i]);
   }
-  const int threads = block_threads(channels);
-  const dim3 grid(num_rois, out_size);
+  if (vec8 && !vec_ok) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    roi_align_ml_fwd_kernel<float><<<grid, threads, 0, st>>>(
-        lv, rois, lvl, bidx, static_cast<float*>(out), channels, out_size,
-        samples);
-  } else {
-    roi_align_ml_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
-        lv, rois, lvl, bidx, static_cast<__nv_bfloat16*>(out), channels,
-        out_size, samples);
+    float* o = static_cast<float*>(out);
+    return (int)(vec8 ? launch_fwd<float, 8>(lv, rois, lvl, bidx, o,
+                                             num_rois, channels, out_size,
+                                             samples, st)
+                      : launch_fwd<float, 2>(lv, rois, lvl, bidx, o,
+                                             num_rois, channels, out_size,
+                                             samples, st));
   }
-  return (int)cudaGetLastError();
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  return (int)(vec8 ? launch_fwd<__nv_bfloat16, 8>(lv, rois, lvl, bidx, o,
+                                                   num_rois, channels,
+                                                   out_size, samples, st)
+                    : launch_fwd<__nv_bfloat16, 2>(lv, rois, lvl, bidx, o,
+                                                   num_rois, channels,
+                                                   out_size, samples, st));
 }
 
 // K2. acc: one f32 buffer holding the four levels' accumulators back to

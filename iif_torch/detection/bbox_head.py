@@ -28,10 +28,17 @@ BBOX_TARGET_STDS = (0.1, 0.1, 0.2, 0.2)
 
 
 class Shared2FCBBoxHead(nn.Module):
+    """``cls_init`` is the initialiser of ``fc_cls`` in fresh weights
+    (``detection/init.py::fresh_init_``): ``("normal", std)`` or
+    ``("constant", value)``, with an optional bias value third, as the
+    JAX head takes it."""
+
     def __init__(self, num_classes: int, in_channels: int = 256,
-                 roi_size: int = 7, fc_out_channels: int = 1024):
+                 roi_size: int = 7, fc_out_channels: int = 1024,
+                 cls_init: tuple = ("normal", 0.01)):
         super().__init__()
         self.num_classes = num_classes
+        self.cls_init = tuple(cls_init)
         self.shared_fcs = nn.ModuleList([
             nn.Linear(in_channels * roi_size * roi_size, fc_out_channels),
             nn.Linear(fc_out_channels, fc_out_channels)])

@@ -83,17 +83,18 @@ class StandardRoIHead(nn.Module):
     """Container for mmdet's ``roi_head.bbox_head`` / ``roi_head.mask_head``
     names."""
 
-    def __init__(self, num_classes: int, with_mask: bool):
+    def __init__(self, num_classes: int, with_mask: bool,
+                 cls_init: tuple = ("normal", 0.01)):
         super().__init__()
-        self.bbox_head = Shared2FCBBoxHead(num_classes)
+        self.bbox_head = Shared2FCBBoxHead(num_classes, cls_init=cls_init)
         self.mask_head = FCNMaskHead(num_classes) if with_mask else None
 
 
 class MaskRCNN(nn.Module):
     """Takes the keyword arguments of a ``configs/`` model dict.
     ``frozen_stages`` and ``norm_eval`` shape the trunk's training;
-    ``cls_init`` (an initialiser of the JAX package's fresh weights) is
-    accepted for the configs' sake; ``compute_dtype`` is the trunk's
+    ``cls_init`` initialises ``fc_cls`` in fresh weights (``fresh_init_``,
+    as the JAX package's ``model.init``); ``compute_dtype`` is the trunk's
     (``"bfloat16"`` in the IIF configs)."""
 
     def __init__(self, num_classes: int = 1203, depth: int = 50,
@@ -114,7 +115,7 @@ class MaskRCNN(nn.Module):
                                norm_eval, compute_dtype)
         self.neck = FPN(compute_dtype=compute_dtype)
         self.rpn_head = RPNHead(num_anchors=3, compute_dtype=compute_dtype)
-        self.roi_head = StandardRoIHead(num_classes, with_mask)
+        self.roi_head = StandardRoIHead(num_classes, with_mask, cls_init)
         self._anchors: Dict[Any, list] = {}
 
     def extract_feat(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -217,8 +218,10 @@ def fpn_shapes(img_hw: Tuple[int, int], num_levels: int = 5):
 
 
 def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights for every parameter and BN statistic, at
-    scales that keep a deep trunk finite and the heads' outputs spread:
+    """Seeded random weights for the parity tests and for serving without
+    a checkpoint (training starts from ``detection/init.py::fresh_init_``,
+    JAX's init), at scales that keep a deep trunk finite and the heads'
+    outputs spread, random BN statistics included:
     normal(0, 1/sqrt(fan_in)) weights, BN scale in [0.5, 1] (the residual
     ``bn3`` in [0.1, 0.3]), small random shifts and BN statistics. A
     model's ``init_std`` maps weight names to a normal std of their own."""

@@ -27,9 +27,9 @@ from iif_torch.detection.detector import (
     MaskRCNN,
     build_detector,
     maskrcnn_loss,
-    random_init_,
     train_cfg_from_dict,
 )
+from iif_torch.detection.init import fresh_init_
 from iif_torch.device import resolve_device
 from iif_torch.engine.schedules import build_lr_schedule, build_optimizer
 
@@ -125,8 +125,9 @@ def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
     """A trainer for a MaskRCNN or a Faster R-CNN C4 config as
     ``iif_tpu/cli/train_det.py`` builds one (model, ``train_cfg``, for
     MaskRCNN with the pipeline's ``mask_stride``, the step-decay schedule
-    with warm-up, SGD), with seeded random weights: the port loads no
-    checkpoint for training yet. Raises
+    with warm-up, SGD), from fresh weights drawn as the JAX package's
+    ``model.init`` draws them (``fresh_init_``, seeded; ``cls_init`` from
+    the config): the port loads no checkpoint for training yet. Raises
     ``NotImplementedError`` for what the port does not train with:
     gradient accumulation, gradient clipping, parameter-wise optimizer
     settings and other LR policies."""
@@ -143,7 +144,7 @@ def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
         if bad:
             raise NotImplementedError(f"{key} is not ported")
     model = build_detector(dict(cfg.model))
-    random_init_(model, torch.Generator().manual_seed(seed))
+    fresh_init_(model, torch.Generator().manual_seed(seed))
     tc = dict(cfg.get("train_cfg", {}))
     if isinstance(model, MaskRCNN):
         tc.setdefault("mask_gt_stride",

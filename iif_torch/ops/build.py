@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``. Nothing links against PyTorch's
 headers, so a build takes seconds. Libraries go to
 ``build/iif_torch_kernels/`` at the repo root (listed in ``.gitignore``),
-named by a hash of the source and the flags, so a changed source builds
-anew and an unchanged one is loaded as it is.
+named by a hash of the source, the headers it shares (``csrc/*.cuh``) and
+the flags, so a changed source builds anew and an unchanged one is loaded
+as it is.
 
 Nothing is compiled at import: the first call that launches a kernel
 builds it, and ``build_all`` builds every kernel up front, one ``nvcc``
@@ -27,13 +28,13 @@ CSRC = REPO_ROOT / "iif_torch" / "csrc"
 BUILD_DIR = REPO_ROOT / "build" / "iif_torch_kernels"
 
 # Flags per source. -fmad=false keeps the RoIAlign sample geometry in the
-# float op order of the plain version (see each source's header).
+# float op order of the plain version (roi_align_common.cuh).
 _ROI_ALIGN_FLAGS = ["-O3", "-std=c++17",
                     "-gencode", "arch=compute_90a,code=sm_90a",
                     "-fmad=false", "-Xptxas", "-v"]
 NVCC_FLAGS = {
     "roi_align_ml": _ROI_ALIGN_FLAGS,      # K1, K2
-    "roi_align": _ROI_ALIGN_FLAGS,         # K3
+    "roi_align": _ROI_ALIGN_FLAGS,         # K3, K4
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -51,9 +52,12 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    """The library's path, named by a hash of its source, the shared
+    headers and the flags."""
+    sources = [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS[name]).encode()).hexdigest()
+        b"".join(src.read_bytes() for src in sources)
+        + " ".join(NVCC_FLAGS[name]).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

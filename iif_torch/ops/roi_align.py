@@ -25,8 +25,11 @@ matmuls and the backward's read-add-write of a window have no
 counterpart, and non-square outputs take the kernels too. Both kernels
 live in ``iif_torch/csrc/roi_align.cu``. Their least time on an H100 is
 set by HBM bytes, mostly the f32 output K3 writes and the f32 gradient K4
-reads; as written, K3's instructions per channel pair and K4's atomics
-set their pace (``PERF.md``).
+reads. K3 is built to that bound's instruction budget: one block a RoI
+with its taps computed once, eight channels a thread with 16-byte loads
+and stores (``kernel_path``: two a thread for any other layout), s=2
+unrolled, a separable blend in FMAs; K4's atomics set its pace
+(``PERF.md``).
 
 ``roi_align`` is differentiable in the map: on a CPU tensor it is the
 plain version under autograd; on a CUDA tensor it is ``RoIAlign``, whose
@@ -148,9 +151,22 @@ def _fn(symbol: str, argtypes: list):
 
 
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_ARGS = [_VP] + [_CI] * 4 + [_VP] * 2 + [_CI] * 4 + [_CF] + [_CI] * 2 \
+_FWD_ARGS = [_VP] + [_CI] * 4 + [_VP] * 2 + [_CI] * 4 + [_CF] + [_CI] * 3 \
     + [_VP]
 _BWD_ARGS = [_VP] + [_CI] * 4 + [_VP] * 2 + [_CI] * 4 + [_CF, _CI, _VP]
+
+
+def kernel_path(*tensors: torch.Tensor) -> str:
+    """Which instantiation of a RoIAlign forward kernel (K1, K3) takes
+    these channels-last tensors, the map or levels and the output:
+    ``"vec8"`` (eight channels a thread, 16-byte loads and stores) when
+    every one has a multiple of 8 channels and starts on 16 bytes, else
+    ``"pair"`` (two channels a thread), e.g. for C=258 or a view whose
+    storage offset is an odd number of channel pairs."""
+    if all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+           for t in tensors):
+        return "vec8"
+    return "pair"
 
 
 def _check_cuda_inputs(features, rois, out_h, out_w, s):
@@ -179,6 +195,10 @@ def _count(counter: Dict[Tuple[int, int], int], out_h: int,
     counter[(out_h, out_w)] = counter.get((out_h, out_w), 0) + 1
 
 
+def count_path(counter: Dict[str, int], path: str) -> None:
+    counter[path] = counter.get(path, 0) + 1
+
+
 def _launch(features, rois, out_h, out_w, s, spatial_scale, aligned):
     """K3 on validated inputs: (R, out_h, out_w, C) float32."""
     bsz, h, w, c = features.shape
@@ -187,15 +207,18 @@ def _launch(features, rois, out_h, out_w, s, spatial_scale, aligned):
                       device=rois.device)
     if r == 0:
         return out
+    path = kernel_path(features, out)
     with torch.cuda.device(rois.device):    # the launch uses the current one
         err = _fn("iif_roi_align_fwd", _FWD_ARGS)(
             features.data_ptr(), bsz, h, w, c, rois.data_ptr(),
             out.data_ptr(), r, out_h, out_w, s, float(spatial_scale),
             int(bool(aligned)), _DTYPES[features.dtype],
+            int(path == "vec8"),
             torch.cuda.current_stream(rois.device).cuda_stream)
     if err:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
     _count(roi_align.launches_by_size, out_h, out_w)
+    count_path(roi_align.launches_by_path, path)
     return out
 
 
@@ -264,11 +287,14 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
 
 
 # Kernel launches per (out_h, out_w): K3's, and K4's (launched only by
-# ``RoIAlign.backward``); CPU calls do not count.
+# ``RoIAlign.backward``); K3's also per ``kernel_path``. CPU calls do not
+# count.
 roi_align.launches_by_size: Dict[Tuple[int, int], int] = {}
+roi_align.launches_by_path: Dict[str, int] = {}
 grad_launches_by_size: Dict[Tuple[int, int], int] = {}
 
 
 def reset_launches() -> None:
     roi_align.launches_by_size = {}
+    roi_align.launches_by_path = {}
     grad_launches_by_size.clear()

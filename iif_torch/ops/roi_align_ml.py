@@ -18,8 +18,11 @@ Both kernels live in ``iif_torch/csrc/roi_align_ml.cu``. What bounds them
 on an H100 is HBM bytes: K1 reads the touched feature rows and writes the
 (R, out, out, C) output; K2 reads g and read-modify-writes the touched f32
 accumulator rows, then writes the levels' gradient. Both read each
-bilinear corner as one coalesced row of C channels (NHWC, two channels a
-thread) with a block's sample geometry in shared memory.
+bilinear corner as one coalesced row of C channels (NHWC) with the sample
+geometry in shared memory. K1 takes one block a RoI and eight channels a
+thread with 16-byte loads and stores (``kernel_path``: two a thread for
+any other layout), K2 one block a (RoI, bin row) and two channels a
+thread.
 
 ``roi_align_ml`` is differentiable: on a CPU tensor it is the plain
 version under autograd; on a CUDA tensor it is ``RoIAlignML``, whose
@@ -34,6 +37,7 @@ from typing import Dict, Sequence, Tuple, Union
 import torch
 
 from iif_torch.ops import build
+from iif_torch.ops.roi_align import count_path, kernel_path
 
 KERNEL = "roi_align_ml"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -165,7 +169,7 @@ def _fn(symbol: str, argtypes: list):
 
 _VP, _CI, _CF, _CLL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                        ctypes.c_longlong)
-_FWD_ARGS = [_VP] * 4 + [_CI] * 8 + [_CF] * 4 + [_VP] * 4 + [_CI] * 5 + [_VP]
+_FWD_ARGS = [_VP] * 4 + [_CI] * 8 + [_CF] * 4 + [_VP] * 4 + [_CI] * 6 + [_VP]
 _BWD_ARGS = ([_VP] * 2 + [_CLL] * 5 + [_CI] * 8 + [_CF] * 4 + [_VP] * 4
              + [_CI] * 5 + [_VP])
 
@@ -222,6 +226,7 @@ def _launch_fwd(feats, rois, lvl, bidx, out_size, s, strides):
                       device=rois.device)
     if r == 0:
         return out
+    path = kernel_path(*feats, out)
     with torch.cuda.device(rois.device):    # the launch uses the current one
         err = _fn("iif_roi_align_ml_fwd", _FWD_ARGS)(
             *[f.data_ptr() for f in feats], *_level_dims(
@@ -229,10 +234,12 @@ def _launch_fwd(feats, rois, lvl, bidx, out_size, s, strides):
             *[float(st) for st in strides],
             rois.data_ptr(), lvl.data_ptr(), bidx.data_ptr(), out.data_ptr(),
             r, c, out_size, s, _DTYPES[feats[0].dtype],
+            int(path == "vec8"),
             torch.cuda.current_stream(rois.device).cuda_stream)
     if err:
         raise RuntimeError(f"{KERNEL} forward launch failed: cudaError {err}")
     _count(roi_align_ml.launches_by_size, out_size)
+    count_path(roi_align_ml.launches_by_path, path)
     return out
 
 
@@ -313,11 +320,14 @@ def roi_align_ml(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 
 # Kernel launches per output size (7 or 14): K1's, and K2's (launched
-# only by ``RoIAlignML.backward``); CPU calls do not count.
+# only by ``RoIAlignML.backward``); K1's also per ``kernel_path``. CPU
+# calls do not count.
 roi_align_ml.launches_by_size: Dict[int, int] = {}
+roi_align_ml.launches_by_path: Dict[str, int] = {}
 grad_launches_by_size: Dict[int, int] = {}
 
 
 def reset_launches() -> None:
     roi_align_ml.launches_by_size = {}
+    roi_align_ml.launches_by_path = {}
     grad_launches_by_size.clear()

@@ -57,9 +57,9 @@ def test_port_package_has_every_module():
                 "detection/inference.py", "cli/serve.py",
                 "ops/assigner.py", "ops/sampler.py", "engine/schedules.py",
                 "engine/detection.py", "ops/roi_align.py", "detection/c4.py",
-                "detection/simple_test.py"):
+                "detection/simple_test.py", "detection/init.py"):
         assert mod in names, mod
-    for src in ("roi_align_ml.cu", "roi_align.cu"):
+    for src in ("roi_align_ml.cu", "roi_align.cu", "roi_align_common.cuh"):
         assert (REPO / "iif_torch" / "csrc" / src).is_file(), src
 
 
@@ -123,9 +123,11 @@ def test_single_level_roi_align_pairs_k3_with_k4():
     assert callable(mod.roi_align_grad_reference)
     mod.grad_launches_by_size[(14, 14)] = 1
     mod.roi_align.launches_by_size[(14, 14)] = 1
+    mod.roi_align.launches_by_path["vec8"] = 1
     mod.reset_launches()
     assert mod.grad_launches_by_size == {}
     assert mod.roi_align.launches_by_size == {}
+    assert mod.roi_align.launches_by_path == {}
     assert callable(c4_loss) and hasattr(C4FasterRCNN, "train_anchors")
     src = (REPO / "iif_torch" / "csrc" / "roi_align.cu").read_text()
     assert 'extern "C" int iif_roi_align_bwd(' in src

@@ -119,10 +119,12 @@ def test_wrapper_cpu_is_plain_version():
     feats = [torch.from_numpy(rng.randn(2, h, w, 8).astype(np.float32))
              for h, w in SMALL_LEVELS]
     rois = torch.from_numpy(make_rois(rng, 16, (64, 96), (4, 96)))
-    before = dict(roi_align_ml.launches_by_size)
+    before = (dict(roi_align_ml.launches_by_size),
+              dict(roi_align_ml.launches_by_path))
     got = roi_align_ml(feats, rois, (14, 14))
     assert torch.equal(got, roi_align_ml_reference(feats, rois, (14, 14)))
-    assert roi_align_ml.launches_by_size == before  # no kernel on the CPU
+    assert (roi_align_ml.launches_by_size,
+            roi_align_ml.launches_by_path) == before  # no kernel on the CPU
 
 
 @pytest.mark.cuda
@@ -181,3 +183,68 @@ def test_k2_matches_plain_backward_on_card(o, r, dtype):
         if dtype == torch.bfloat16:
             bound = bound + 2.0 ** -8 * w.abs()
         assert bool((err <= bound).all())
+
+
+def _bf16_within_ulp(got, want):
+    cast = want.to(torch.bfloat16).float()
+    ulp = torch.pow(2.0, torch.floor(torch.log2(cast.abs().clamp(
+        min=2.0 ** -126))) - 7)
+    return bool(((got.float() - cast).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 256])
+@pytest.mark.parametrize("o,sr", [(7, 0), (14, 0), (7, 1), (7, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_paths_on_card(c, o, sr, dtype):
+    """K1's eight-channel path (C=256) and its two-channel one (C=2)
+    against the plain version on small levels, sampling ratios 0 (s=2,
+    the unrolled loop), 1 and 4: f32 within 1e-5, bf16 within one bf16
+    ulp of the value after the cast. Then the same levels as views 2
+    elements into their storage (an odd count of channel pairs): the
+    two-channel path, with the same bits as the aligned levels'. The
+    launch counters record the path of each launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from iif_torch.ops.roi_align import kernel_path
+    from iif_torch.ops.roi_align_ml import reset_launches
+
+    rng = np.random.RandomState(c + o + sr)
+    feats = [torch.from_numpy(rng.randn(2, h, w, c).astype(np.float32))
+             .to("cuda", dtype) for h, w in SMALL_LEVELS]
+    rois = torch.from_numpy(make_rois(rng, 64, (64, 96), (4, 96))).cuda()
+    reset_launches()
+    got = roi_align_ml(feats, rois, (o, o), sampling_ratio=sr)
+    torch.cuda.synchronize()
+    path = "vec8" if c % 8 == 0 else "pair"
+    assert kernel_path(*feats, got) == path
+    assert roi_align_ml.launches_by_path == {path: 1}
+    want = roi_align_ml_reference(feats, rois, (o, o), sampling_ratio=sr)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert _bf16_within_ulp(got, want)
+    views = []
+    for f in feats:
+        buf = torch.empty(f.numel() + 2, dtype=dtype, device="cuda")
+        views.append(buf[2:].view(f.shape))
+        views[-1].copy_(f)
+    again = roi_align_ml(views, rois, (o, o), sampling_ratio=sr)
+    torch.cuda.synchronize()
+    assert kernel_path(*views, again) == "pair"
+    assert roi_align_ml.launches_by_path == (
+        {"pair": 2} if path == "pair" else {"vec8": 1, "pair": 1})
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 256])
+def test_k1_no_rois_on_card(c):
+    """R=0 on either path: an empty (0, 7, 7, C) in the feature dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    feats = [torch.zeros(1, h, w, c, dtype=torch.bfloat16, device="cuda")
+             for h, w in SMALL_LEVELS]
+    got = roi_align_ml(feats, torch.zeros(0, 5, device="cuda"), (7, 7))
+    torch.cuda.synchronize()
+    assert got.shape == (0, 7, 7, c) and got.dtype == torch.bfloat16

@@ -151,11 +151,13 @@ def test_wrapper_cpu_is_plain_version():
     rng = np.random.RandomState(2)
     feats = torch.from_numpy(rng.randn(2, 12, 20, 8).astype(np.float32))
     rois = torch.from_numpy(make_rois(rng, 16, (12, 20), 1 / 16))
-    before = dict(roi_align.launches_by_size)
+    before = (dict(roi_align.launches_by_size),
+              dict(roi_align.launches_by_path))
     got = roi_align(feats, rois, (14, 14), 1 / 16)
     assert torch.equal(got, roi_align_reference(feats, rois, (14, 14),
                                                 1 / 16))
-    assert roi_align.launches_by_size == before  # no kernel on the CPU
+    assert (roi_align.launches_by_size,
+            roi_align.launches_by_path) == before  # no kernel on the CPU
 
 
 def test_wrapper_raises_on_other_devices():
@@ -271,3 +273,104 @@ def test_k4_matches_plain_on_card_options(out, sr, aligned, dtype):
     rng = np.random.RandomState(20 + sr + out[1])
     feats, rois = _k3_case(rng, 2, (12, 20), 64, 200, 1 / 4, dtype)
     _k4_matches_plain(feats, rois, out, 1 / 4, sr, aligned)
+
+
+def _strided_copy(t, offset):
+    """``t`` as a contiguous view that starts ``offset`` elements into its
+    storage."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("c,dtype,offset,path", [
+    (16, torch.float32, 0, "vec8"),
+    (16, torch.bfloat16, 0, "vec8"),
+    (1024, torch.bfloat16, 0, "vec8"),
+    (6, torch.float32, 0, "pair"),
+    (258, torch.bfloat16, 0, "pair"),
+    (16, torch.float32, 2, "pair"),      # 8 bytes in
+    (16, torch.bfloat16, 2, "pair"),     # 4 bytes in
+    (16, torch.float32, 4, "vec8"),      # 16 bytes in
+    (16, torch.bfloat16, 8, "vec8"),     # 16 bytes in
+])
+def test_kernel_path_choice(c, dtype, offset, path):
+    """The wrappers' choice between the forward kernels' two
+    instantiations (plain Python, as on the card): eight channels a thread
+    when C % 8 == 0 and the map and the output start on 16 bytes, two
+    otherwise; a misaligned output alone sends it to the pair path."""
+    from iif_torch.ops.roi_align import kernel_path
+
+    feats = _strided_copy(torch.zeros(2, 3, 4, c, dtype=dtype), offset)
+    out = torch.empty(5, 7, 7, c)
+    assert feats.is_contiguous()
+    assert kernel_path(feats, out) == path
+    assert kernel_path(feats, _strided_copy(out, 2)) == "pair"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 6, 258, 1024])
+@pytest.mark.parametrize("out,sr,aligned", [((14, 14), 0, True),
+                                            ((7, 7), 1, False),
+                                            ((7, 7), 4, True),
+                                            ((5, 9), 2, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_paths_on_card(c, out, sr, aligned, dtype):
+    """K3's eight-channel path (C=1024) and its two-channel one (C = 2, 6,
+    258) against the plain version on a small map: sampling ratios 0
+    (s=2, the unrolled loop), 1 and 4, 7x7, 14x14 and non-square bins,
+    aligned or not; within 1e-5. The launch counters record the path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from iif_torch.ops.roi_align import kernel_path, reset_launches
+
+    rng = np.random.RandomState(c + sr)
+    feats, rois = _k3_case(rng, 2, (12, 20), c, 64, 1 / 4, dtype)
+    reset_launches()
+    got = roi_align(feats, rois, out, 1 / 4, sr, aligned)
+    torch.cuda.synchronize()
+    path = "vec8" if c % 8 == 0 else "pair"
+    assert kernel_path(feats, got) == path
+    assert roi_align.launches_by_path == {path: 1}
+    want = roi_align_reference(feats, rois, out, 1 / 4, sr, aligned)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_offset_view_on_card(dtype):
+    """A map that is a view into its storage: 2 elements in (an odd count
+    of channel pairs, so not 16-byte aligned) takes the two-channel path,
+    16 bytes in the eight-channel one; both give the aligned map's bits,
+    since each channel's sums run in the same order on either path. One
+    element in is not pair-aligned and raises, as it always did."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from iif_torch.ops.roi_align import kernel_path
+
+    rng = np.random.RandomState(30)
+    feats, rois = _k3_case(rng, 2, C4_MAP, 64, 300, 1 / 16, dtype)
+    want = roi_align(feats, rois, (14, 14), 1 / 16)
+    assert kernel_path(feats, want) == "vec8"
+    for offset, path in ((2, "pair"), (16 // feats.element_size(), "vec8")):
+        view = _strided_copy(feats, offset)
+        got = roi_align(view, rois, (14, 14), 1 / 16)
+        torch.cuda.synchronize()
+        assert kernel_path(view, got) == path
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="aligned to a channel pair"):
+        roi_align(_strided_copy(feats, 1), rois, (14, 14), 1 / 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [6, 1024])
+def test_k3_no_rois_on_card(c):
+    """R=0 on either path: an empty f32 (0, 14, 14, C), no launch
+    failure."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    feats = torch.zeros(1, 6, 8, c, dtype=torch.bfloat16, device="cuda")
+    got = roi_align(feats, torch.zeros(0, 5, device="cuda"), (14, 14), 1 / 16)
+    torch.cuda.synchronize()
+    assert got.shape == (0, 14, 14, c) and got.dtype == torch.float32
