@@ -19,19 +19,23 @@
    training shapes (B=4; 7x7 with R=2048 and 14x14 with R=512; heavily
    overlapping RoIs and the aspect 8/12/1/8/16 ones; f32 and bf16) K1
    again and its backward K2, through ``RoIAlignML.backward`` as autograd
-   runs it, against the plain backward, likewise. Then the single-level
-   RoIAlign forward K3 against its plain version (run in chunks of RoIs)
-   at the C4 serving shapes (the C4 map (B, 50, 84, 1024), B = 1 and 2,
-   R = 1000 B RoIs shaped like the serving proposals with border, outside,
-   sub-cell and wider-than-40-cell ones, 14x14 at 1/16; f32 and bf16
-   maps), likewise (at B=1 also on a map 2 elements into its storage),
-   and on small cases of its other options (unaligned, sampling ratios 1
-   and 4, non-square bins). Then at the C4 training
-   shapes (B=4, R=2048 RoIs spread like the proposals plus border,
-   outside, sub-cell, whole-map and zero-size ones and a pile on one
-   cell, 14x14; f32 and bf16 maps): K3 again, and its backward K4,
+   runs it, against the plain backward, likewise, its ``kernel_ms`` the C
+   entry's launches alone (memset, kernel and, for bf16, the cast), and
+   its float4 reductions estimated from the RoIs on a line of their own.
+   Then the single-level RoIAlign forward K3 against its plain version
+   (run in chunks of RoIs) at the C4 serving shapes (the C4 map (B, 50,
+   84, 1024), B = 1 and 2, R = 1000 B RoIs shaped like the serving
+   proposals with border, outside, sub-cell and wider-than-40-cell ones,
+   14x14 at 1/16; f32 and bf16 maps), likewise (at B=1 also on a map 2
+   elements into its storage), and on small cases of its other options
+   (unaligned, sampling ratios 1 and 4, non-square bins). Then at the C4
+   training shapes (B=4, R=2048 RoIs spread like the proposals plus
+   border, outside, sub-cell, whole-map and zero-size ones and a pile on
+   one cell, 14x14; f32 and bf16 maps): K3 again, and its backward K4,
    through ``RoIAlign.backward`` as autograd runs it, against the plain
-   backward (in chunks of RoIs), likewise.
+   backward (in chunks of RoIs), likewise (``kernel_ms`` the memset and
+   the kernel), and once more on its two-channel path (g a view 2
+   elements into its storage, through the backward's launch function).
 3. Serving phase: IIF MaskRCNN R50-FPN with 1203 LVIS classes, bf16 trunk,
    seeded random weights and IIF weights from seeded long-tailed counts,
    serving 40 seeded images through ``inference_detector`` (b1) and
@@ -58,15 +62,16 @@
    canvases with 100 gt slots (about 30% valid) and bit-packed masks at
    400x672: 3 warm-up steps and TRAIN_STEPS timed ones (ms/step and
    img/s, median and spread), every step's losses, K1's and K2's launches
-   counted from 0 over those steps, NMS host syncs a step, the moved and
-   the frozen parameters; then each stage's wall time with the device drained at its ends and
+   counted from 0 over those steps (every one on ``vec8``), NMS host
+   syncs a step, the moved and the frozen parameters; then each stage's
+   wall time with the device drained at its ends and
    its kernel time, and the device's busy share over the unprofiled step.
 7. C4 training phase: the trainer of the C4 config as it stands (80
    classes, bf16 trunk, SGD lr 0.02 with 500 warm-up iterations, frozen
    stem and stage 1, ``norm_eval``, 2000 proposals, 512 RoIs an image,
    CE) on a seeded b4 batch like 6.'s without masks and with 80 classes:
    as in 6., with K3's and K4's launches (and K1's and K2's: none)
-   counted from 0, and its stages.
+   counted from 0 (every K3 and K4 launch on ``vec8``), and its stages.
 8. The card's name and power limit, the ``kernels`` JSON line, then the
    device line as the last line.
 
@@ -130,8 +135,8 @@ def check(ok, what):
 
 
 def check_vec8(what, by_path, launched):
-    """Every one of a main path's ``launched`` forward launches took the
-    eight-channel instantiation (the wrappers count launches by
+    """Every one of a main path's ``launched`` launches of a kernel took
+    the eight-channel instantiation (the wrappers count launches by
     ``kernel_path``)."""
     check(by_path == ({"vec8": launched} if launched else {}),
           f"{what}: {launched} launches, all on vec8, got {by_path}")
@@ -325,6 +330,45 @@ def roi_align_grad_bound(feats, rois, o, s=2):
     return _bound(nbytes, r * o * o * c * s * s * 12) + (touched,)
 
 
+def distinct_cells(a, z, n, o, s=2, clamp_min=False, per_bin=False):
+    """Per RoI (or, with ``per_bin``, per RoI and bin), the distinct map
+    cells along one axis that its taps touch with a nonzero weight (the
+    backward kernels' footprint slots): RoI start ``a`` and end ``z`` in
+    cells, ``n`` cells in the map (both (R,) tensors)."""
+    import torch
+
+    extent = z - a
+    if clamp_min:
+        extent = extent.clamp(min=1.0)
+    pos = (torch.arange(o * s, dtype=torch.float32, device=a.device)
+           + 0.5) / s
+    p = torch.minimum((a[:, None] + extent[:, None] / o * pos[None])
+                      .clamp(min=0), (n - 1)[:, None].float())
+    lo = p.floor()
+    hi = torch.where(p > lo, lo + 1, lo)        # frac 0: no high corner
+    cells = torch.stack([lo, hi], 2).reshape(
+        a.shape[0], o if per_bin else 1, -1).sort(2).values
+    count = 1 + (cells[..., 1:] != cells[..., :-1]).sum(2)
+    return count if per_bin else count[:, 0]
+
+
+def grad_reductions(rois, o, scale, heights, widths, c, offset=0.5,
+                    clamp_min=False):
+    """An estimate of the backward kernels' (K2, K4) float4 atomics on
+    these RoIs: one per touched (row, column) of a RoI and 4 channels.
+    The taps come from torch's arithmetic, not make_tap's, so a tap near a
+    cell's edge may land in the next cell: not a count of the kernel's.
+    ``scale``, ``heights`` and ``widths`` are (R,) tensors, each RoI's
+    level's."""
+    cols = distinct_cells(rois[:, 1] * scale - offset,
+                          rois[:, 3] * scale - offset, widths, o,
+                          clamp_min=clamp_min)
+    rows = distinct_cells(rois[:, 2] * scale - offset,
+                          rois[:, 4] * scale - offset, heights, o,
+                          clamp_min=clamp_min)
+    return int((rows * cols).sum().item()) * (c // 4)
+
+
 def k1_row(torch, feats32, rois, o, dt, offset=0):
     """K1 against its plain version on one set of inputs, in ``dt``: the
     error, K1's path, the wrapper call's time (``ms``, with the level
@@ -424,6 +468,9 @@ def kernel_train_phase(torch, np):
     through ``RoIAlignML.backward`` as autograd runs it in a training
     step, against the plain backward."""
     from iif_torch.ops.roi_align_ml import (
+        _bwd_buffers,
+        _bwd_call,
+        _roi_meta,
         roi_align_ml,
         roi_align_ml_grad_reference,
     )
@@ -461,20 +508,40 @@ def kernel_train_phase(torch, np):
                 err = max(err, d.max().item())
                 excess = max(excess, (d - bound).max().item())
             ms = cuda_ms(k2_call)
+            # the C entry alone (memset, kernel and, for bf16, the cast)
+            shapes = [tuple(f.shape) for f in feats]
+            lvl, bidx = _roi_meta(rois, 4, 56.0)
+            acc, res, gk, path = _bwd_buffers(shapes, dt, g)
+            kernel_ms = graph_ms(lambda: _bwd_call(
+                acc, res, gk, path, shapes, rois, lvl, bidx, o, 2,
+                (4, 8, 16, 32)))
+            del acc, res, gk
             plain_ms = cuda_ms(lambda: roi_align_ml_grad_reference(
                 feats, rois, g, (o, o)), iters=1, reps=5)
             bound_ms, bound_by, touched = roi_align_grad_bound(feats, rois,
                                                                o)
+            lv = lvl.long()
+            dims = torch.tensor(LVIS_LEVELS, device="cuda")[lv]
             row = {"o": o, "R": r, "B": TRAIN_BATCH,
-                   "dtype": str(dt).split(".")[-1],
+                   "dtype": str(dt).split(".")[-1], "path": path,
                    "max_abs_err": err, "max_grad": scale,
                    "tolerance": (f"{GRAD_REL_TOL} x max |grad|"
                                  + (" + 2^-8 x |value|"
                                     if dt == torch.bfloat16 else "")),
-                   "ok": excess <= 0.0, "ms": ms, "plain_ms": plain_ms,
+                   "ok": excess <= 0.0, "ms": ms, "kernel_ms": kernel_ms,
+                   "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_share": bound_ms / ms,
+                   "kernel_bound_share": bound_ms / kernel_ms,
                    "touched_feature_rows": touched}
+            check(path == "vec8", "K2 takes vec8 at the training shapes")
             log("kernel K2", json.dumps(row))
+            log("K2 atomics estimated from the RoIs", json.dumps({
+                "o": o, "dtype": row["dtype"],
+                "float4_reductions": grad_reductions(
+                    rois, o, 1.0 / 2.0 ** (lv + 2).float(), dims[:, 0],
+                    dims[:, 1], 256),
+                "scalar_atomics_before": r * o * o * 16 * 256}))
             if not row["ok"]:
                 raise RuntimeError(f"K2 disagrees with its plain version: "
                                    f"{row}")
@@ -703,7 +770,15 @@ def kernel_k4_phase(torch, np):
     version, and K4, through ``RoIAlign.backward`` as autograd runs it in
     a training step, against the plain backward, each with its error,
     time, the plain version's time and the bound."""
-    from iif_torch.ops.roi_align import _launch, kernel_path, roi_align
+    from iif_torch.ops import roi_align as k34_mod
+    from iif_torch.ops.roi_align import (
+        _bwd_buffers,
+        _bwd_call,
+        _launch,
+        _launch_bwd,
+        kernel_path,
+        roi_align,
+    )
 
     rng = np.random.RandomState(5)
     f32 = torch.tensor(rng.randn(TRAIN_BATCH, *C4_MAP, C4_CHANNELS),
@@ -769,25 +844,94 @@ def kernel_k4_phase(torch, np):
         del got, d
         bound_ms, bound_by, touched = roi_align_single_grad_bound(
             feat, rois, 14)
+        ms = cuda_ms(k4_call)
+        kernel_ms, path = k4_kernel_ms(_bwd_buffers, _bwd_call, feat, rois,
+                                       g)
+        check(path == "vec8", "K4 takes vec8 at the C4 training shapes")
         row = {"o": 14, "R": C4_TRAIN_ROIS, "B": TRAIN_BATCH, "dtype": name,
-               "max_abs_err": err, "max_grad": scale,
+               "path": path, "max_abs_err": err, "max_grad": scale,
                "tolerance": (f"{GRAD_REL_TOL} x max |grad|"
                              + (" + 2^-8 x |value|"
                                 if dt == torch.bfloat16 else "")),
-               "ok": excess <= 0.0, "ms": cuda_ms(k4_call),
+               "ok": excess <= 0.0, "ms": ms, "kernel_ms": kernel_ms,
                "plain_ms": cuda_ms(lambda: plain_single_grad_chunked(
                    feat, rois, g), iters=1, reps=3),
                "plain_note": f"the plain backward in chunks of "
                              f"{GRAD_CHUNK} RoIs, summed in f32",
                "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / ms,
+               "kernel_bound_share": bound_ms / kernel_ms,
                "touched_feature_rows": touched}
         log("kernel K4", json.dumps(row))
+        est = c4_grad_reductions(feat, rois)
+        log("K4 atomics estimated from the RoIs", json.dumps({
+            "dtype": name, "float4_reductions": est[0],
+            "float2_reductions_before": est[1]}))
         if not row["ok"]:
             raise RuntimeError(f"K4 disagrees with its plain version: "
                                f"{row}")
         k4[name] = row
         del out
+    # the two-channel path: g a view 2 elements into its storage, through
+    # the backward's launch function (autograd may copy a gradient)
+    feat = f32.to(torch.bfloat16)
+    g_view = offset_view(g, 2)
+    k34_mod.reset_launches()
+    got = _launch_bwd(tuple(feat.shape), feat.dtype, rois, g_view, 14, 14, 2,
+                      1 / 16, True)
+    torch.cuda.synchronize()
+    check(k34_mod.grad_launches_by_path == {"pair": 1},
+          f"K4 takes pair on an offset g view: "
+          f"{k34_mod.grad_launches_by_path}")
+    d = (got.float() - want).abs()
+    err = d.max().item()
+    excess = (d - (GRAD_REL_TOL * scale + 2.0 ** -8 * want.abs())).max().item()
+    del got, d
+    kernel_ms, path = k4_kernel_ms(_bwd_buffers, _bwd_call, feat, rois,
+                                   g_view)
+    ms = cuda_ms(lambda: _launch_bwd(tuple(feat.shape), feat.dtype, rois,
+                                     g_view, 14, 14, 2, 1 / 16, True))
+    bound_ms = k4["bfloat16"]["bound_ms"]
+    row = {"path": path, "storage_offset": g_view.storage_offset(),
+           "max_abs_err": err, "ok": excess <= 0.0, "ms": ms,
+           "ms_note": "the backward's launch function, not through autograd",
+           "kernel_ms": kernel_ms, "bound_share": bound_ms / ms,
+           "kernel_bound_share": bound_ms / kernel_ms}
+    log("kernel K4 pair", json.dumps(row))
+    check(path == "pair" and row["ok"], f"K4 pair path: {row}")
+    k4["pair"] = row
     return k3, k4
+
+
+def k4_kernel_ms(bwd_buffers, bwd_call, feat, rois, g):
+    """K4's C entry alone on its buffers (the memset and the kernel; the
+    cast to the map's dtype is the wrapper's): ``graph_ms`` and the path
+    the buffers take."""
+    acc, gk, path = bwd_buffers(tuple(feat.shape), g)
+    ms = graph_ms(lambda: bwd_call(acc, gk, path, rois, 14, 14, 2, 1 / 16,
+                                   True))
+    return ms, path
+
+
+def c4_grad_reductions(feat, rois):
+    """Estimates (``grad_reductions``) of K4's float4 atomics at the C4
+    scale (14x14 at 1/16, aligned), and of the float2 ones of K4's
+    earlier design on the same RoIs (one block a (RoI, bin row), one
+    float2 per touched (row, column) of a bin row and 2 channels)."""
+    import torch
+
+    n, dev = rois.shape[0], rois.device
+    h = torch.full((n,), feat.shape[1], device=dev)
+    w = torch.full((n,), feat.shape[2], device=dev)
+    scale = torch.full((n,), 1 / 16, device=dev)
+    c = feat.shape[-1]
+    cols = distinct_cells(rois[:, 1] * scale - 0.5,
+                          rois[:, 3] * scale - 0.5, w, 14)
+    rows_per_bin = distinct_cells(rois[:, 2] * scale - 0.5,
+                                  rois[:, 4] * scale - 0.5, h, 14,
+                                  per_bin=True)
+    before = int((rows_per_bin.sum(1) * cols).sum().item()) * (c // 2)
+    return grad_reductions(rois, 14, scale, h, w, c), before
 
 
 def write_lvis_annotations(np, path):
@@ -1364,7 +1508,11 @@ def training_phase(torch, np):
     from iif_torch.detection.inference import build_loss_cls
     from iif_torch.detection.losses import compute_det_iif_from_counts
     from iif_torch.engine.detection import trainer_from_config
-    from iif_torch.ops.roi_align_ml import grad_launches_by_size, roi_align_ml
+    from iif_torch.ops.roi_align_ml import (
+        grad_launches_by_path,
+        grad_launches_by_size,
+        roi_align_ml,
+    )
 
     cfg = Config.fromfile(str(REPO / "configs/iif/iif_r50_1x.py"))
     ann = BUILD / "lvis_v1_synthetic.json"
@@ -1410,13 +1558,15 @@ def training_phase(torch, np):
                  "K2": dict(grad_launches_by_size)})
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
     log("training path launches", json.dumps(launches), "K1 by kernel path",
-        json.dumps(roi_align_ml.launches_by_path))
+        json.dumps(roi_align_ml.launches_by_path), "K2 by kernel path",
+        json.dumps(grad_launches_by_path))
     for k, counts_k in launches.items():
         if counts_k != {7: n_steps, 14: n_steps}:
             raise RuntimeError(f"{k} not launched once a size a step on the "
                                f"training path: {counts_k}")
     check_vec8("K1 on the training path", roi_align_ml.launches_by_path,
                2 * n_steps)
+    check_vec8("K2 on the training path", grad_launches_by_path, 2 * n_steps)
     moved = {n: (params[n].detach() - v).abs().max().item()
              for n, v in watch.items()}
     log("parameter change", json.dumps(moved))
@@ -1505,7 +1655,8 @@ def c4_training_phase(torch, np):
     log("C4 training path launches",
         json.dumps({k: {str(s): n for s, n in v.items()}
                     for k, v in launches.items()}), "K3 by kernel path",
-        json.dumps(k34_mod.roi_align.launches_by_path))
+        json.dumps(k34_mod.roi_align.launches_by_path), "K4 by kernel path",
+        json.dumps(k34_mod.grad_launches_by_path))
     want = {"K3": {(14, 14): n_steps}, "K4": {(14, 14): n_steps},
             "K1": {}, "K2": {}}
     if launches != want:
@@ -1513,6 +1664,8 @@ def c4_training_phase(torch, np):
                            f"step at 14x14 and K1/K2 never: {launches}")
     check_vec8("K3 on the C4 training path",
                k34_mod.roi_align.launches_by_path, n_steps)
+    check_vec8("K4 on the C4 training path", k34_mod.grad_launches_by_path,
+               n_steps)
     moved = {n: (params[n].detach() - v).abs().max().item()
              for n, v in watch.items()}
     log("C4 parameter change", json.dumps(moved))
@@ -1641,8 +1794,14 @@ def main() -> int:
             "f32_max_abs_err": kern_grad[(o, "float32")]["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None,
-            "shape": f"R={row['R']} bf16 LVIS levels B={row['B']} C=256"})
+            "library_ms": None, "kernel_ms": row["kernel_ms"],
+            "path": row["path"], "bound_share": row["bound_share"],
+            "kernel_bound_share": row["kernel_bound_share"],
+            "f32_ms": kern_grad[(o, "float32")]["ms"],
+            "f32_kernel_ms": kern_grad[(o, "float32")]["kernel_ms"],
+            "shape": f"R={row['R']} bf16 LVIS levels B={row['B']} C=256, "
+                     "through autograd; kernel_ms the C entry (memset, "
+                     "kernel, cast)"})
     row, row2 = k3_rows[(1, "bfloat16")], k3_rows[(2, "bfloat16")]
     by_path = {p: c["K3"] for p, c in c4["launches"].items()}
     kernels.append({
@@ -1691,10 +1850,11 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "f32_ms": rows["float32"]["ms"],
             "shape": shape + note})
-        if key == "K3":
-            kernels[-1].update({k: row[k] for k in (
-                "kernel_ms", "path", "bound_share", "kernel_bound_share")})
-            kernels[-1]["f32_kernel_ms"] = rows["float32"]["kernel_ms"]
+        kernels[-1].update({k: row[k] for k in (
+            "kernel_ms", "path", "bound_share", "kernel_bound_share")})
+        kernels[-1]["f32_kernel_ms"] = rows["float32"]["kernel_ms"]
+        if key == "K4":
+            kernels[-1]["pair"] = rows["pair"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -49,19 +49,50 @@
 // 32x40 window (nor its clamp of wider RoIs' taps), no 8-aligned origin,
 // no one-hot matmuls, no read-add-write DMA of a window.
 //
-// K4's layout: the map is a contiguous (B, H, W, C) tensor, so one bilinear
-// corner is a contiguous row of C values. A block owns one (RoI, bin row);
-// its threads split C two channels at a time, so each corner add is one
-// coalesced row. The row's sample geometry is computed once per block into
-// shared memory. Its bound is HBM bytes, the f32 g it reads; its pace is
-// set by its atomics: a 14x14 RoI of 2x2 samples has 784 samples of 4
-// corners, while a 32 px RoI at stride 16 covers about 3x3 cells. So K4
-// merges before it adds: the weight of a map row is summed over the
-// block's y samples once (into shared memory), and each thread sums its
-// consecutive x samples that land on one cell in registers, then adds
-// (row weight x cell sum) with one float2 atomic per touched (row, cell).
-// The weights factor as wy * wx, so the merged sums are the same function
-// in another f32 order.
+// K4's bound is HBM bytes: the f32 g it reads (1.64 GB at the C4 training
+// shapes, R=2048, 14x14, C=1024), the touched accumulator rows and the
+// map's gradient, 0.54 ms. A first version gave each (RoI, bin row) a
+// block, merged the y weights of its samples per map row and the x
+// samples of one cell in registers, and added one float2 a touched (row,
+// cell): about 600 M float2 reductions, 4.8 GB, at those shapes. The
+// TPU kernel computes each RoI's window at once as dF = row_w^T g col_w
+// and read-adds-writes it, which a grid that runs in order allows. Here
+// (roi_align_common.cuh):
+//   1. One block a (RoI, split): the RoI's distinct map rows and columns,
+//      each with its bins' summed weights (1/s^2 folded into the rows),
+//      built once a block in shared memory from K3's taps.
+//   2. One vector atomic per touched (row, column) of a RoI and 4
+//      channels: a work item (a row slot, 8 channels) walks the bins,
+//      sums g over the row's bins once a bin (h) and spreads h over the
+//      bin's columns into a window of 4 columns of pending sums in
+//      registers, adding a column when the window moves past it. At
+//      those shapes about 190 M float4 reductions, 3.0 GB (chip_smoke.py
+//      estimates both designs' from the RoIs); a pile RoI (2-8 px on one
+//      16 px cell) adds at most 3 x 3 x 256 float4s, where each of its 14
+//      bin rows added its own.
+//   3. Eight channels a thread (vec8) when C % 8 == 0 and g and the
+//      accumulator start on 16 bytes: for a RoI of more than 8 rows two
+//      runs of 4 channels, a chunk's lanes apart, so that the float4s that
+//      lanes issue together cover whole sectors; for a smaller one 8
+//      consecutive channels (kSmallRows). Otherwise the same kernel at two
+//      channels and float2 atomics (pair). The wrapper chooses
+//      (kernel_path).
+//   4. A RoI's items spread over splits = ceil(items of a RoI out_h * s + 1
+//      rows high / (2 x 256)) blocks (8 at the C4 shapes, kPasses), so
+//      that a whole-map RoI (about 50 x 84 cells) is not one SM's tail; a
+//      block with no item returns first, from the RoI's first and last
+//      taps (end_span).
+// What sets its pace is L2, not HBM: the card's reductions run at 1.45
+// (f32) to 1.87 (float4) TB/s of payload (iif_torch/tools/
+// reduction_rate.cu on an H100 80GB HBM3 at 700 W), so K4's 3.0 GB of
+// reductions and the g it reads through L2 take most of its time
+// (PERF.md). Fewer bytes would need sums across RoIs before the atomics.
+// What it does not use: tensor cores (a contraction depth of out = 14, and
+// f32 held within 1e-5 of the largest gradient, which TF32 would not
+// meet); TMA (g's rows are contiguous and read as 16-byte loads already).
+// RoIs that overlap still add with atomics, in an order that changes from
+// run to run: a deterministic two-pass (per-RoI windows, then a segmented
+// sum) would write the windows' 3.0 GB of f32 sums and read them again.
 //
 // This file is built with -fmad=false: K3 and K4 take their taps from the
 // one make_tap (roi_align_common.cuh), so K4 scatters into exactly the
@@ -133,42 +164,30 @@ cudaError_t launch_fwd(const T* feat, int batch, int height, int width,
   return cudaGetLastError();
 }
 
-// Two channels added into the accumulator at p (8-byte aligned): one
-// float2 atomic, which sm_90 has for global memory.
-__device__ __forceinline__ void add_pair(float* p, float a, float b) {
-  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
-}
+// K4's items a thread for a RoI of out_h * s + 1 rows (bwd_shape): 2 gives
+// a RoI half the blocks of 1. On a C4 training step's RoIs (1.3-2.8 cells
+// a side, most of their blocks idle) one item took 3% longer; on the
+// kernel phase's, with whole-map RoIs, 2 took 8% longer (PERF.md).
+constexpr int kPasses = 2;
 
-// The pending sums of one x cell flushed into every map row the block's
-// y samples touch, each scaled by that row's summed weight.
-__device__ __forceinline__ void flush_cell(float* map, const int* rows,
-                                           const float* row_w, int num_rows,
-                                           int width, int channels, int c,
-                                           int cell, float2 v) {
-  if (cell < 0 || (v.x == 0.0f && v.y == 0.0f)) return;
-  for (int k = 0; k < num_rows; ++k) {
-    const float w = row_w[k];
-    if (w == 0.0f) continue;
-    add_pair(map + ((size_t)rows[k] * width + cell) * channels + c, v.x * w,
-             v.y * w);
-  }
-}
-
-// K4. One block a (RoI, bin row), on K3's taps. Sums in an order that
-// changes from run to run (atomics from overlapping RoIs and bins).
-__global__ void roi_align_bwd_kernel(float* __restrict__ acc, int batch,
-                                     int height, int width, int channels,
-                                     const float* __restrict__ rois,
-                                     const float* __restrict__ grad,
-                                     int out_h, int out_w, int samples,
-                                     float spatial_scale, int aligned) {
-  __shared__ Tap xtap[kMaxTaps];
-  __shared__ int rows[2 * kMaxTaps];
-  __shared__ float row_w[2 * kMaxTaps];
-  __shared__ int num_rows;
+// K4. One block a (RoI, split): both footprints built once a block, the
+// block's share of the RoI's (row slot, channels) items scattered with one
+// vector atomic per touched (row, column). Sums in an order that changes
+// from run to run (atomics from overlapping RoIs).
+template <int V>
+__global__ void __launch_bounds__(kMaxThreads)
+    roi_align_bwd_kernel(float* __restrict__ acc, int batch, int height,
+                         int width, int channels,
+                         const float* __restrict__ rois,
+                         const float* __restrict__ grad, int out_h,
+                         int out_w, int samples, float spatial_scale,
+                         int aligned) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* p = smem;
+  const Footprint ys = carve_footprint(p, out_h, samples, height);
+  const Footprint xs = carve_footprint(p, out_w, samples, width);
 
   const int r = blockIdx.x;
-  const int ph = blockIdx.y;
   const float* roi = rois + (size_t)r * 5;
   int b = (int)roi[0];
   b = b < 0 ? 0 : (b >= batch ? batch - 1 : b);
@@ -185,82 +204,47 @@ __global__ void roi_align_bwd_kernel(float* __restrict__ acc, int batch,
   }
   const float bin_w = roi_w / (float)out_w;
   const float bin_h = roi_h / (float)out_h;
-  const int taps_x = out_w * samples;
+  const int taps = out_h * samples;
+  const int rows_max =
+      slot_bound(end_span(y1, bin_h, taps, samples, height), taps);
+  if (!has_items(rows_max, channels, V)) return;
 
-  for (int t = threadIdx.x; t < taps_x; t += blockDim.x) {
-    xtap[t] = make_tap(x1, bin_w, t, samples, (float)(width - 1));
-  }
-  if (threadIdx.x == 0) {
-    // each distinct map row of this bin row's y samples, with the sum of
-    // the y weights that land on it
-    int n = 0;
-    for (int iy = 0; iy < samples; ++iy) {
-      const Tap ty = make_tap(y1, bin_h, ph * samples + iy, samples,
-                              (float)(height - 1));
-      const int row[2] = {ty.lo, ty.hi};
-      const float w[2] = {1.0f - ty.frac, ty.frac};
-      for (int k = 0; k < 2; ++k) {
-        int j = 0;
-        while (j < n && rows[j] != row[k]) ++j;
-        if (j == n) {
-          rows[n] = row[k];
-          row_w[n] = 0.0f;
-          ++n;
-        }
-        row_w[j] += w[k];
-      }
-    }
-    num_rows = n;
+  for (int t = threadIdx.x; t < taps; t += blockDim.x) {
+    ys.tap[t] = make_tap(y1, bin_h, t, samples, (float)(height - 1));
   }
   __syncthreads();
-
-  float* map = acc + (size_t)b * height * width * channels;
-  const float* src = grad + ((size_t)r * out_h + ph) * out_w * channels;
-  const float count = (float)(samples * samples);
-  const int n_rows = num_rows;
-  const float2 zero = make_float2(0.0f, 0.0f);
-
-  for (int c = 2 * threadIdx.x; c < channels; c += 2 * blockDim.x) {
-    // pending sums of the x cells `cell` (pa) and `cell + 1` (pb): the
-    // taps advance along x, so consecutive samples mostly share them
-    int cell = -2;
-    float2 pa = zero;
-    float2 pb = zero;
-    for (int pw = 0; pw < out_w; ++pw) {
-      const float2 gv =
-          *reinterpret_cast<const float2*>(src + (size_t)pw * channels + c);
-      const float g0 = gv.x / count;
-      const float g1 = gv.y / count;
-      for (int ix = 0; ix < samples; ++ix) {
-        const Tap tx = xtap[pw * samples + ix];
-        if (tx.lo != cell) {
-          flush_cell(map, rows, row_w, n_rows, width, channels, c, cell, pa);
-          if (tx.lo == cell + 1) {
-            pa = pb;
-          } else {
-            flush_cell(map, rows, row_w, n_rows, width, channels, c,
-                       cell + 1, pb);
-            pa = zero;
-          }
-          pb = zero;
-          cell = tx.lo;
-        }
-        const float wx1 = tx.frac;
-        const float wx0 = 1.0f - wx1;
-        pa.x += g0 * wx0;
-        pa.y += g1 * wx0;
-        if (tx.hi == tx.lo) {       // clamped at the map's last column
-          pa.x += g0 * wx1;
-          pa.y += g1 * wx1;
-        } else {
-          pb.x += g0 * wx1;
-          pb.y += g1 * wx1;
-        }
-      }
-    }
-    flush_cell(map, rows, row_w, n_rows, width, channels, c, cell, pa);
-    flush_cell(map, rows, row_w, n_rows, width, channels, c, cell + 1, pb);
+  const Span rows = tap_span(ys.tap, taps);
+  // the mean over the s x s samples folded into the row weights
+  const int n_rows = build_footprint(
+      ys, out_h, samples, 1.0f / (float)(samples * samples), rows);
+  if (!has_items(n_rows, channels, V)) return;
+  for (int t = threadIdx.x; t < out_w * samples; t += blockDim.x) {
+    xs.tap[t] = make_tap(x1, bin_w, t, samples, (float)(width - 1));
   }
+  __syncthreads();
+  const int n_cols = build_footprint(xs, out_w, samples, 1.0f,
+                                     tap_span(xs.tap, out_w * samples));
+
+  scatter_roi_any<float, V>(
+      grad + (size_t)r * out_h * out_w * channels,
+      acc + (size_t)b * height * width * channels, width, channels, out_h,
+      out_w, ys, n_rows, xs, n_cols);
+}
+
+template <int V>
+cudaError_t launch_bwd(float* acc, int batch, int height, int width,
+                       int channels, const float* rois, const float* grad,
+                       int num_rois, int out_h, int out_w, int samples,
+                       float spatial_scale, int aligned, cudaStream_t st) {
+  const BwdShape shape =
+      bwd_shape(channels, V, out_h, out_w, samples, height, width, kPasses);
+  const cudaError_t err = allow_smem(roi_align_bwd_kernel<V>, shape.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(num_rois, shape.splits);
+  roi_align_bwd_kernel<V><<<grid, kMaxThreads, shape.smem, st>>>(
+      acc, batch, height, width, channels, rois, grad, out_h, out_w, samples,
+      spatial_scale, aligned);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -309,25 +293,31 @@ extern "C" int iif_roi_align_fwd(const void* feat, int batch, int height,
 
 // K4. acc: (B, H, W, C) float32, zeroed here, receives the map's gradient
 // (the caller casts it to the map's dtype); rois: (R, 5) float32; grad:
-// (R, out_h, out_w, C) float32, the gradient of K3's output. Returns the
-// first cudaError_t.
+// (R, out_h, out_w, C) float32, the gradient of K3's output. vec8 (8
+// channels a thread, float4 atomics) needs C % 8 == 0 and acc and grad
+// 16-byte aligned; otherwise 2 channels a thread (float2 atomics).
+// Returns the first cudaError_t.
 extern "C" int iif_roi_align_bwd(float* acc, int batch, int height,
                                  int width, int channels, const float* rois,
                                  const float* grad, int num_rois, int out_h,
                                  int out_w, int samples, float spatial_scale,
-                                 int aligned, void* stream) {
+                                 int aligned, int vec8, void* stream) {
   if (out_h * samples > kMaxTaps || out_w * samples > kMaxTaps ||
-      samples < 1 || (channels & 1) || batch < 1) {
+      samples < 1 || out_h < 1 || out_w < 1 || channels < 2 ||
+      (channels & 1) || batch < 1) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (vec8 && ((channels & 7) || !aligned16(acc) || !aligned16(grad))) {
+    return (int)cudaErrorMisalignedAddress;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(
       acc, 0, (size_t)batch * height * width * channels * sizeof(float), st);
   if (err != cudaSuccess || num_rois == 0) return (int)err;
-  const int threads = block_threads(channels);
-  const dim3 grid(num_rois, out_h);
-  roi_align_bwd_kernel<<<grid, threads, 0, st>>>(
-      acc, batch, height, width, channels, rois, grad, out_h, out_w, samples,
-      spatial_scale, aligned);
-  return (int)cudaGetLastError();
+  return (int)(vec8 ? launch_bwd<8>(acc, batch, height, width, channels,
+                                    rois, grad, num_rois, out_h, out_w,
+                                    samples, spatial_scale, aligned, st)
+                    : launch_bwd<2>(acc, batch, height, width, channels,
+                                    rois, grad, num_rois, out_h, out_w,
+                                    samples, spatial_scale, aligned, st));
 }

@@ -39,10 +39,30 @@
 //   5. Plain stores: K3's streaming stores were measured on its f32
 //      output only (0.8 GB at R=1000); K1 writes 50 MB at 7x7, R=2000.
 //
-// K2's layout: every FPN level is a contiguous (B, H_l, W_l, C) tensor, so
-// one bilinear corner is a contiguous row of C values. A block owns one
-// (RoI, bin row); its threads split C two channels at a time, so each
-// corner add is one coalesced row.
+// K2's bound is HBM bytes: g read once, the touched f32 accumulator rows
+// read and written once and the levels' gradient written once (0.18 ms at
+// 7x7, R=2048, B=4, bf16, C=256). A first version gave each (RoI, bin
+// row) a block and issued eight scalar f32 atomics per sample and channel
+// pair, 411 M a call at either training shape, and ran at 8-11% of the
+// bound. The TPU kernel computes a RoI's window at once as dF = row_w^T g
+// col_w with the 1/s^2 pool folded into the weights. Here, as K4
+// (roi_align_common.cuh, roi_align.cu): one block a (RoI, split) builds
+// the RoI's distinct rows and columns at its level with their bins'
+// summed weights (1/s^2 folded into the rows) once in shared memory;
+// each work item (a row slot, 8 channels as two runs of 4) walks the
+// bins, sums g over them in registers and adds one float4 atomic per
+// touched (row, column) and 4 channels: for an FPN-mapped RoI 14-28
+// cells wide at its level, at most 29 x 29 at 14x14 and 28 x 28 at 7x7
+// (fewer where taps share cells), against 3,136 and 784 scalar atomics a
+// channel. At C=256 a chunk of 64 channels spans 8 lanes; 7x7 takes two
+// blocks a RoI, 14x14 four (kPasses), and a RoI of at most 8 rows 8
+// consecutive channels an item (kSmallRows, as K4). vec8 needs C % 8 == 0 and g and every level's
+// accumulator on 16 bytes; the pair path (2 channels, float2 atomics)
+// takes any other layout; the wrapper chooses. Its pace is set as K4's,
+// by the L2's reductions (0.76 GB at 7x7, 0.22 GB at 14x14), and by the
+// wrapper's memset of all four levels' accumulators and, for bf16, their
+// cast (0.27 ms at B=4, 800x1344), which stay. Tensor cores and TMA are
+// not used, for K4's reasons.
 //
 // This file is built with -fmad=false and K1 and K2 take their taps from
 // the one make_tap (roi_align_common.cuh). The FPN level of each RoI comes
@@ -121,27 +141,33 @@ cudaError_t launch_fwd(const Levels& lv, const float* rois, const int* lvl,
   return cudaGetLastError();
 }
 
-// K2. One block a (RoI, bin row), on K1's taps; each corner's share goes into
-// an f32 accumulator shaped like its level with atomicAdd, so overlapping
-// RoIs (and neighbouring samples of one RoI) add up in an order that
-// changes from run to run. Bound: the f32 read-modify-write of the
-// touched accumulator rows and the read of g; the atomics resolve in L2.
-template <typename T>
-__global__ void roi_align_ml_bwd_kernel(Levels acc,
-                                        const float* __restrict__ rois,
-                                        const int* __restrict__ lvl,
-                                        const int* __restrict__ bidx,
-                                        const T* __restrict__ grad,
-                                        int channels, int out_size,
-                                        int samples) {
-  __shared__ Tap ytap[kMaxTaps];
-  __shared__ Tap xtap[kMaxTaps];
+// K2's items a thread for a RoI of out * s + 1 rows (bwd_shape).
+// map_roi_levels puts a RoI on the level where it spans 14-28 cells (the
+// finest level takes all smaller ones), so its RoIs mostly fill their
+// blocks: on a MaskRCNN training step's RoIs 2 took 2% longer at 7x7 and
+// 1% less at 14x14 (PERF.md).
+constexpr int kPasses = 1;
 
+// K2. One block a (RoI, split), on K1's taps: both footprints built once
+// a block at the RoI's level, the block's share of the RoI's (row slot,
+// channels) items scattered into the level's f32 accumulator with one
+// vector atomic per touched (row, column). Overlapping RoIs add up in an
+// order that changes from run to run.
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxThreads)
+    roi_align_ml_bwd_kernel(Levels acc, const float* __restrict__ rois,
+                            const int* __restrict__ lvl,
+                            const int* __restrict__ bidx,
+                            const T* __restrict__ grad, int channels,
+                            int out_size, int samples) {
   const int r = blockIdx.x;
-  const int ph = blockIdx.y;
   const int l = lvl[r];
   const int height = pick(acc.h, l);
   const int width = pick(acc.w, l);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* p = smem;
+  const Footprint ys = carve_footprint(p, out_size, samples, height);
+  const Footprint xs = carve_footprint(p, out_size, samples, width);
   const float scale = 1.0f / pick(acc.stride, l);
   const float* roi = rois + (size_t)r * 5;
   const float x1 = roi[1] * scale - 0.5f;
@@ -150,55 +176,56 @@ __global__ void roi_align_ml_bwd_kernel(Levels acc,
   const float y2 = roi[4] * scale - 0.5f;
   const float bin_w = (x2 - x1) / (float)out_size;
   const float bin_h = (y2 - y1) / (float)out_size;
-  const int taps_x = out_size * samples;
+  const int taps = out_size * samples;
+  const int rows_max =
+      slot_bound(end_span(y1, bin_h, taps, samples, height), taps);
+  if (!has_items(rows_max, channels, V)) return;
 
-  for (int t = threadIdx.x; t < taps_x; t += blockDim.x) {
-    xtap[t] = make_tap(x1, bin_w, t, samples, (float)(width - 1));
-  }
-  for (int t = threadIdx.x; t < samples; t += blockDim.x) {
-    ytap[t] = make_tap(y1, bin_h, ph * samples + t, samples,
-                       (float)(height - 1));
+  for (int t = threadIdx.x; t < taps; t += blockDim.x) {
+    ys.tap[t] = make_tap(y1, bin_h, t, samples, (float)(height - 1));
   }
   __syncthreads();
+  const Span rows = tap_span(ys.tap, taps);
+  // the mean over the s x s samples folded into the row weights, as the
+  // TPU kernel folds it (_tap_weights(..., fold_pool=True))
+  const int n_rows = build_footprint(
+      ys, out_size, samples, 1.0f / (float)(samples * samples), rows);
+  if (!has_items(n_rows, channels, V)) return;
+  for (int t = threadIdx.x; t < taps; t += blockDim.x) {
+    xs.tap[t] = make_tap(x1, bin_w, t, samples, (float)(width - 1));
+  }
+  __syncthreads();
+  const int n_cols =
+      build_footprint(xs, out_size, samples, 1.0f, tap_span(xs.tap, taps));
 
   float* dst = static_cast<float*>(const_cast<void*>(pick(acc.ptr, l))) +
                (size_t)bidx[r] * height * width * channels;
-  const T* src = grad + ((size_t)r * out_size + ph) * out_size * channels;
-  const float count = (float)(samples * samples);
+  scatter_roi_any<T, V>(
+      grad + (size_t)r * out_size * out_size * channels, dst, width,
+      channels, out_size, out_size, ys, n_rows, xs, n_cols);
+}
 
-  for (int c = 2 * threadIdx.x; c < channels; c += 2 * blockDim.x) {
-    for (int pw = 0; pw < out_size; ++pw) {
-      float gv[2];
-      Vec<T, 2>::load(src + (size_t)pw * channels + c, gv);
-      const float g0 = gv[0] / count;
-      const float g1 = gv[1] / count;
-      for (int iy = 0; iy < samples; ++iy) {
-        const Tap ty = ytap[iy];
-        const float wy1 = ty.frac;
-        const float wy0 = 1.0f - wy1;
-        float* row0 = dst + (size_t)ty.lo * width * channels + c;
-        float* row1 = dst + (size_t)ty.hi * width * channels + c;
-        for (int ix = 0; ix < samples; ++ix) {
-          const Tap tx = xtap[pw * samples + ix];
-          const float wx1 = tx.frac;
-          const float wx0 = 1.0f - wx1;
-          float* p00 = row0 + (size_t)tx.lo * channels;
-          float* p01 = row0 + (size_t)tx.hi * channels;
-          float* p10 = row1 + (size_t)tx.lo * channels;
-          float* p11 = row1 + (size_t)tx.hi * channels;
-          // (g * wx) * wy: the plain version's autograd order
-          atomicAdd(p00, g0 * wx0 * wy0);
-          atomicAdd(p00 + 1, g1 * wx0 * wy0);
-          atomicAdd(p01, g0 * wx1 * wy0);
-          atomicAdd(p01 + 1, g1 * wx1 * wy0);
-          atomicAdd(p10, g0 * wx0 * wy1);
-          atomicAdd(p10 + 1, g1 * wx0 * wy1);
-          atomicAdd(p11, g0 * wx1 * wy1);
-          atomicAdd(p11 + 1, g1 * wx1 * wy1);
-        }
-      }
-    }
+template <typename T, int V>
+cudaError_t launch_bwd(const Levels& lv, const float* rois, const int* lvl,
+                       const int* bidx, const T* grad, int num_rois,
+                       int channels, int out_size, int samples,
+                       cudaStream_t st) {
+  int height = 1;
+  int width = 1;
+  for (int i = 0; i < kMaxLevels; ++i) {
+    height = lv.h[i] > height ? lv.h[i] : height;
+    width = lv.w[i] > width ? lv.w[i] : width;
   }
+  const BwdShape shape =
+      bwd_shape(channels, V, out_size, out_size, samples, height, width,
+                kPasses);
+  const cudaError_t err =
+      allow_smem(roi_align_ml_bwd_kernel<T, V>, shape.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(num_rois, shape.splits);
+  roi_align_ml_bwd_kernel<T, V><<<grid, kMaxThreads, shape.smem, st>>>(
+      lv, rois, lvl, bidx, grad, channels, out_size, samples);
+  return cudaGetLastError();
 }
 
 // The f32 accumulators rounded once into the bf16 gradient, two values a
@@ -267,47 +294,57 @@ extern "C" int iif_roi_align_ml_fwd(
 // back, each (B, H_l, W_l, C), levels starting at element offsets o0..o3;
 // it is zeroed here. grad: (R, out, out, C) in the feature type. For
 // bfloat16 the result is cast into out (same layout as acc); for float32
-// acc is the result and out is unused. Returns the first cudaError_t.
+// acc is the result and out is unused. vec8 (8 channels a thread, float4
+// atomics) needs C % 8 == 0 and acc, every level's accumulator and grad
+// 16-byte aligned; otherwise 2 channels a thread (float2 atomics). Returns
+// the first cudaError_t.
 extern "C" int iif_roi_align_ml_bwd(
     void* acc, void* out, long long total, long long o0, long long o1,
     long long o2, long long o3, int h0, int w0, int h1, int w1, int h2,
     int w2, int h3, int w3, float s0, float s1, float s2, float s3,
     const float* rois, const int* lvl, const int* bidx, const void* grad,
     int num_rois, int channels, int out_size, int samples, int dtype,
-    void* stream) {
-  if (out_size * samples > kMaxTaps || (channels & 1) || (total & 1) ||
-      dtype < 0 || dtype > 1) {
+    int vec8, void* stream) {
+  if (out_size * samples > kMaxTaps || samples < 1 || out_size < 1 ||
+      channels < 2 || (channels & 1) || (total & 1) || dtype < 0 ||
+      dtype > 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* base = static_cast<float*>(acc);
-  cudaError_t err = cudaMemsetAsync(base, 0, (size_t)total * sizeof(float),
-                                    st);
-  if (err != cudaSuccess) return (int)err;
   Levels lv;
   const long long offs[kMaxLevels] = {o0, o1, o2, o3};
   const int hs[kMaxLevels] = {h0, h1, h2, h3};
   const int ws[kMaxLevels] = {w0, w1, w2, w3};
   const float ss[kMaxLevels] = {s0, s1, s2, s3};
+  bool vec_ok = (channels & 7) == 0 && aligned16(grad);
   for (int i = 0; i < kMaxLevels; ++i) {
     lv.ptr[i] = base + offs[i];
     lv.h[i] = hs[i];
     lv.w[i] = ws[i];
     lv.stride[i] = ss[i];
+    vec_ok = vec_ok && aligned16(lv.ptr[i]);
   }
+  if (vec8 && !vec_ok) return (int)cudaErrorMisalignedAddress;
+  cudaError_t err = cudaMemsetAsync(base, 0, (size_t)total * sizeof(float),
+                                    st);
+  if (err != cudaSuccess) return (int)err;
   if (num_rois > 0) {
-    const dim3 grid(num_rois, out_size);
-    const int threads = block_threads(channels);
     if (dtype == 0) {
-      roi_align_ml_bwd_kernel<float><<<grid, threads, 0, st>>>(
-          lv, rois, lvl, bidx, static_cast<const float*>(grad), channels,
-          out_size, samples);
+      const float* g = static_cast<const float*>(grad);
+      err = vec8 ? launch_bwd<float, 8>(lv, rois, lvl, bidx, g, num_rois,
+                                        channels, out_size, samples, st)
+                 : launch_bwd<float, 2>(lv, rois, lvl, bidx, g, num_rois,
+                                        channels, out_size, samples, st);
     } else {
-      roi_align_ml_bwd_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
-          lv, rois, lvl, bidx, static_cast<const __nv_bfloat16*>(grad),
-          channels, out_size, samples);
+      const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(grad);
+      err = vec8 ? launch_bwd<__nv_bfloat16, 8>(lv, rois, lvl, bidx, g,
+                                                num_rois, channels, out_size,
+                                                samples, st)
+                 : launch_bwd<__nv_bfloat16, 2>(lv, rois, lvl, bidx, g,
+                                                num_rois, channels, out_size,
+                                                samples, st);
     }
-    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (dtype == 1) {

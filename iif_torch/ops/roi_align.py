@@ -28,7 +28,10 @@ set by HBM bytes, mostly the f32 output K3 writes and the f32 gradient K4
 reads. K3 is built to that bound's instruction budget: one block a RoI
 with its taps computed once, eight channels a thread with 16-byte loads
 and stores (``kernel_path``: two a thread for any other layout), s=2
-unrolled, a separable blend in FMAs; K4's atomics set its pace
+unrolled, a separable blend in FMAs. K4 computes each RoI's window as
+the TPU kernel does, dF = Wy^T g Wx: the RoI's distinct map rows and
+columns with their bins' summed weights built once, then one vector
+atomic per touched (row, column), eight channels a thread likewise
 (``PERF.md``).
 
 ``roi_align`` is differentiable in the map: on a CPU tensor it is the
@@ -153,16 +156,18 @@ def _fn(symbol: str, argtypes: list):
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_VP] + [_CI] * 4 + [_VP] * 2 + [_CI] * 4 + [_CF] + [_CI] * 3 \
     + [_VP]
-_BWD_ARGS = [_VP] + [_CI] * 4 + [_VP] * 2 + [_CI] * 4 + [_CF, _CI, _VP]
+_BWD_ARGS = [_VP] + [_CI] * 4 + [_VP] * 2 + [_CI] * 4 + [_CF] + [_CI] * 2 \
+    + [_VP]
 
 
 def kernel_path(*tensors: torch.Tensor) -> str:
-    """Which instantiation of a RoIAlign forward kernel (K1, K3) takes
-    these channels-last tensors, the map or levels and the output:
-    ``"vec8"`` (eight channels a thread, 16-byte loads and stores) when
-    every one has a multiple of 8 channels and starts on 16 bytes, else
-    ``"pair"`` (two channels a thread), e.g. for C=258 or a view whose
-    storage offset is an odd number of channel pairs."""
+    """Which instantiation of a RoIAlign kernel takes these channels-last
+    tensors (for K1 and K3 the map or levels and the output; for K2 and K4
+    g and the f32 accumulator): ``"vec8"`` (eight channels a thread,
+    16-byte loads and stores, float4 atomics) when every one has a
+    multiple of 8 channels and starts on 16 bytes, else ``"pair"`` (two
+    channels a thread), e.g. for C=258 or a view whose storage offset is
+    an odd number of channel pairs."""
     if all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
            for t in tensors):
         return "vec8"
@@ -222,23 +227,40 @@ def _launch(features, rois, out_h, out_w, s, spatial_scale, aligned):
     return out
 
 
-def _launch_bwd(shape, dtype, rois, grad_out, out_h, out_w, s,
-                spatial_scale, aligned):
-    """K4 on validated inputs: the map's gradient, (B, H, W, C) in
-    ``dtype`` (summed in f32, cast once)."""
-    bsz, h, w, c = shape
-    dev = rois.device
-    acc = torch.empty(shape, dtype=torch.float32, device=dev)
+def _bwd_buffers(shape, grad_out):
+    """K4's buffers for a map of ``shape``: the f32 accumulator, g as the
+    contiguous f32 tensor the kernel reads, and the kernel path they
+    allow (``kernel_path``: a g view that starts off 16 bytes, or C % 8,
+    sends it to ``"pair"``)."""
+    acc = torch.empty(shape, dtype=torch.float32, device=grad_out.device)
     g = grad_out.float().contiguous()
+    return acc, g, kernel_path(g, acc)
+
+
+def _bwd_call(acc, g, path, rois, out_h, out_w, s, spatial_scale, aligned):
+    """K4's C entry on its buffers: zero ``acc`` and scatter into it. No
+    allocation and no count: a CUDA graph of it times the kernel."""
+    bsz, h, w, c = acc.shape
+    dev = rois.device
     with torch.cuda.device(dev):
         err = _fn("iif_roi_align_bwd", _BWD_ARGS)(
             acc.data_ptr(), bsz, h, w, c, rois.data_ptr(), g.data_ptr(),
             rois.shape[0], out_h, out_w, s, float(spatial_scale),
-            int(bool(aligned)), torch.cuda.current_stream(dev).cuda_stream)
+            int(bool(aligned)), int(path == "vec8"),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{KERNEL} backward launch failed: cudaError "
                            f"{err}")
+
+
+def _launch_bwd(shape, dtype, rois, grad_out, out_h, out_w, s,
+                spatial_scale, aligned):
+    """K4 on validated inputs: the map's gradient, (B, H, W, C) in
+    ``dtype`` (summed in f32, cast once)."""
+    acc, g, path = _bwd_buffers(shape, grad_out)
+    _bwd_call(acc, g, path, rois, out_h, out_w, s, spatial_scale, aligned)
     _count(grad_launches_by_size, out_h, out_w)
+    count_path(grad_launches_by_path, path)
     return acc.to(dtype)
 
 
@@ -287,14 +309,16 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
 
 
 # Kernel launches per (out_h, out_w): K3's, and K4's (launched only by
-# ``RoIAlign.backward``); K3's also per ``kernel_path``. CPU calls do not
+# ``RoIAlign.backward``); each also per ``kernel_path``. CPU calls do not
 # count.
 roi_align.launches_by_size: Dict[Tuple[int, int], int] = {}
 roi_align.launches_by_path: Dict[str, int] = {}
 grad_launches_by_size: Dict[Tuple[int, int], int] = {}
+grad_launches_by_path: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
     roi_align.launches_by_size = {}
     roi_align.launches_by_path = {}
     grad_launches_by_size.clear()
+    grad_launches_by_path.clear()

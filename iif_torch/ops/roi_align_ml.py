@@ -17,12 +17,14 @@ boxes), accumulated in f32 with atomics and cast to the feature dtype.
 Both kernels live in ``iif_torch/csrc/roi_align_ml.cu``. What bounds them
 on an H100 is HBM bytes: K1 reads the touched feature rows and writes the
 (R, out, out, C) output; K2 reads g and read-modify-writes the touched f32
-accumulator rows, then writes the levels' gradient. Both read each
+accumulator rows, then writes the levels' gradient. Both touch each
 bilinear corner as one coalesced row of C channels (NHWC) with the sample
-geometry in shared memory. K1 takes one block a RoI and eight channels a
-thread with 16-byte loads and stores (``kernel_path``: two a thread for
-any other layout), K2 one block a (RoI, bin row) and two channels a
-thread.
+geometry in shared memory, eight channels a thread with 16-byte accesses
+(``kernel_path``: two a thread for any other layout). K1 takes one block
+a RoI. K2 computes each RoI's window as the TPU kernel does, dF = Wy^T g
+Wx: the RoI's distinct rows and columns at its level with their bins'
+summed weights built once, then one float4 atomic per touched (row,
+column) and 4 channels.
 
 ``roi_align_ml`` is differentiable: on a CPU tensor it is the plain
 version under autograd; on a CUDA tensor it is ``RoIAlignML``, whose
@@ -171,7 +173,7 @@ _VP, _CI, _CF, _CLL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                        ctypes.c_longlong)
 _FWD_ARGS = [_VP] * 4 + [_CI] * 8 + [_CF] * 4 + [_VP] * 4 + [_CI] * 6 + [_VP]
 _BWD_ARGS = ([_VP] * 2 + [_CLL] * 5 + [_CI] * 8 + [_CF] * 4 + [_VP] * 4
-             + [_CI] * 5 + [_VP])
+             + [_CI] * 6 + [_VP])
 
 
 def _check_cuda_inputs(feats, rois, out_h, out_w, strides):
@@ -243,28 +245,51 @@ def _launch_fwd(feats, rois, lvl, bidx, out_size, s, strides):
     return out
 
 
-def _launch_bwd(shapes, dtype, rois, lvl, bidx, grad_out, out_size, s,
-                strides):
-    """K2 on validated inputs: the four levels' gradient in ``dtype``."""
-    dev = rois.device
+def _bwd_buffers(shapes, dtype, grad_out):
+    """K2's buffers for levels of ``shapes`` in ``dtype``: one f32
+    accumulator holding the levels back to back, the result (the
+    accumulator itself for f32), g as the contiguous ``dtype`` tensor the
+    kernel reads, and the kernel path they allow (``kernel_path``)."""
+    dev = grad_out.device
     c = int(shapes[0][-1])
-    sizes = [math.prod(shp) for shp in shapes]
-    offs = [sum(sizes[:i]) for i in range(len(sizes))]
-    total = sum(sizes)
+    total = sum(math.prod(shp) for shp in shapes)
     acc = torch.empty(total, dtype=torch.float32, device=dev)
     out = acc if dtype == torch.float32 else torch.empty(
         total, dtype=dtype, device=dev)
     g = grad_out.to(dtype).contiguous()
+    return acc, out, g, kernel_path(g, acc.view(-1, c))
+
+
+def _bwd_call(acc, out, g, path, shapes, rois, lvl, bidx, out_size, s,
+              strides):
+    """K2's C entry on its buffers: zero ``acc``, scatter into it and, for
+    bf16, cast it into ``out``. No allocation and no count: a CUDA graph
+    of it times the kernel."""
+    dev = rois.device
+    sizes = [math.prod(shp) for shp in shapes]
+    offs = [sum(sizes[:i]) for i in range(len(sizes))]
     with torch.cuda.device(dev):
         err = _fn("iif_roi_align_ml_bwd", _BWD_ARGS)(
-            acc.data_ptr(), out.data_ptr(), total, *offs,
+            acc.data_ptr(), out.data_ptr(), acc.numel(), *offs,
             *_level_dims(shapes), *[float(st) for st in strides],
             rois.data_ptr(), lvl.data_ptr(), bidx.data_ptr(), g.data_ptr(),
-            rois.shape[0], c, out_size, s, _DTYPES[dtype],
+            rois.shape[0], int(shapes[0][-1]), out_size, s,
+            _DTYPES[g.dtype], int(path == "vec8"),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{KERNEL} backward launch failed: cudaError {err}")
+
+
+def _launch_bwd(shapes, dtype, rois, lvl, bidx, grad_out, out_size, s,
+                strides):
+    """K2 on validated inputs: the four levels' gradient in ``dtype``."""
+    acc, out, g, path = _bwd_buffers(shapes, dtype, grad_out)
+    _bwd_call(acc, out, g, path, shapes, rois, lvl, bidx, out_size, s,
+              strides)
     _count(grad_launches_by_size, out_size)
+    count_path(grad_launches_by_path, path)
+    sizes = [math.prod(shp) for shp in shapes]
+    offs = [sum(sizes[:i]) for i in range(len(sizes))]
     return tuple(out[o:o + n].view(shp)
                  for o, n, shp in zip(offs, sizes, shapes))
 
@@ -320,14 +345,16 @@ def roi_align_ml(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 
 # Kernel launches per output size (7 or 14): K1's, and K2's (launched
-# only by ``RoIAlignML.backward``); K1's also per ``kernel_path``. CPU
+# only by ``RoIAlignML.backward``); each also per ``kernel_path``. CPU
 # calls do not count.
 roi_align_ml.launches_by_size: Dict[int, int] = {}
 roi_align_ml.launches_by_path: Dict[str, int] = {}
 grad_launches_by_size: Dict[int, int] = {}
+grad_launches_by_path: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
     roi_align_ml.launches_by_size = {}
     roi_align_ml.launches_by_path = {}
     grad_launches_by_size.clear()
+    grad_launches_by_path.clear()

@@ -248,3 +248,106 @@ def test_k1_no_rois_on_card(c):
     got = roi_align_ml(feats, torch.zeros(0, 5, device="cuda"), (7, 7))
     torch.cuda.synchronize()
     assert got.shape == (0, 7, 7, c) and got.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("c,offset,path", [
+    (256, 0, "vec8"),
+    (16, 0, "vec8"),
+    (2, 0, "pair"),
+    (258, 0, "pair"),
+    (16, 2, "pair"),                    # g 4 or 8 bytes into its storage
+    (16, 8, "vec8"),                    # 16 or 32 bytes in
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_backward_path_choice(c, offset, path, dtype):
+    """K2's buffers and path (plain Python, as on the card): one f32
+    accumulator for the four levels back to back, the result in the
+    feature dtype (the accumulator itself for f32), g read as contiguous
+    in that dtype; eight channels a thread when C % 8 == 0 and g and the
+    accumulator start on 16 bytes, two otherwise."""
+    from iif_torch.ops.roi_align_ml import _bwd_buffers
+
+    buf = torch.randn(3 * 7 * 7 * c + offset).to(dtype)
+    grad = buf[offset:].view(3, 7, 7, c)
+    shapes = [(2, h, w, c) for h, w in SMALL_LEVELS]
+    acc, out, g, got = _bwd_buffers(shapes, dtype, grad)
+    total = sum(2 * h * w * c for h, w in SMALL_LEVELS)
+    assert acc.shape == (total,) and acc.dtype == torch.float32
+    assert out.dtype == dtype and out.shape == (total,)
+    assert (out is acc) == (dtype == torch.float32)
+    assert g.data_ptr() == grad.data_ptr() and g.dtype == dtype
+    assert got == path
+
+
+def _lvis_rois_with_pile(rng, r):
+    """``make_rois`` at LVIS scale over 2 images, the whole canvas (the
+    coarsest level), then a pile of 16 identical RoIs, so that many RoIs
+    add into the same cells."""
+    rois = make_rois(rng, r, (800, 1344), (16, 512))
+    extra = np.array([[0, 0.0, 0.0, 1343.0, 799.0]]
+                     + [[1, 300.5, 200.25, 420.75, 290.5]] * 16, np.float32)
+    return torch.from_numpy(np.concatenate([rois, extra])).cuda()
+
+
+def _k2_matches_plain(feats, rois, o, sr):
+    """K2 through ``RoIAlignML`` against the plain backward, as
+    ``test_k2_matches_plain_backward_on_card`` holds it."""
+    rng = np.random.RandomState(o + sr)
+    c, dtype = feats[0].shape[-1], feats[0].dtype
+    g = torch.from_numpy(rng.randn(rois.shape[0], o, o, c).astype(
+        np.float32)).to("cuda", dtype)
+    leaves = [f.clone().requires_grad_() for f in feats]
+    roi_align_ml(leaves, rois, (o, o), sampling_ratio=sr).backward(g)
+    torch.cuda.synchronize()
+    want = roi_align_ml_grad_reference(
+        [f.float() for f in feats], rois, g.float(), (o, o),
+        sampling_ratio=sr)
+    scale = max(w.abs().max().item() for w in want)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == dtype and leaf.grad.shape == w.shape
+        err = (leaf.grad.float() - w).abs()
+        bound = 1e-5 * scale
+        if dtype == torch.bfloat16:
+            bound = bound + 2.0 ** -8 * w.abs()
+        assert bool((err <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 256])
+@pytest.mark.parametrize("o,sr", [(7, 0), (14, 0), (7, 1), (7, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_paths_on_card(c, o, sr, dtype):
+    """K2's eight-channel path (C=256) and its two-channel one (C=2)
+    against the plain backward on the LVIS levels (B=2), sampling ratios
+    0 (s=2), 1 and 4, RoIs on every level and a pile of identical ones.
+    The launch counters record the path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from iif_torch.ops.roi_align_ml import grad_launches_by_path, reset_launches
+
+    rng = np.random.RandomState(c + o + sr)
+    feats = [torch.from_numpy(rng.randn(2, h, w, c).astype(np.float32))
+             .to("cuda", dtype) for h, w in LVIS_LEVELS]
+    rois = _lvis_rois_with_pile(rng, 64)
+    assert set(map_roi_levels(rois, 4).tolist()) == {0, 1, 2, 3}
+    reset_launches()
+    _k2_matches_plain(feats, rois, o, sr)
+    assert grad_launches_by_path == {"vec8" if c % 8 == 0 else "pair": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_no_rois_on_card(c, dtype):
+    """R=0 on either path: zero gradients of the levels' shapes and
+    dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    leaves = [torch.ones(1, h, w, c, dtype=dtype, device="cuda",
+                         requires_grad=True) for h, w in SMALL_LEVELS]
+    roi_align_ml(leaves, torch.zeros(0, 5, device="cuda"), (7, 7)).backward(
+        torch.zeros(0, 7, 7, c, dtype=dtype, device="cuda"))
+    torch.cuda.synchronize()
+    for leaf in leaves:
+        assert leaf.grad.dtype == dtype and leaf.grad.shape == leaf.shape
+        assert not leaf.grad.any()

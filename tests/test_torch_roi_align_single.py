@@ -374,3 +374,121 @@ def test_k3_no_rois_on_card(c):
     got = roi_align(feats, torch.zeros(0, 5, device="cuda"), (14, 14), 1 / 16)
     torch.cuda.synchronize()
     assert got.shape == (0, 14, 14, c) and got.dtype == torch.float32
+
+
+@pytest.mark.parametrize("c,offset,path", [
+    (1024, 0, "vec8"),
+    (16, 0, "vec8"),
+    (6, 0, "pair"),
+    (258, 0, "pair"),
+    (16, 2, "pair"),                    # g 8 bytes into its storage
+    (16, 4, "vec8"),                    # 16 bytes in
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_backward_path_choice(c, offset, path, dtype):
+    """K4's buffers and path (plain Python, as on the card): g is read as
+    contiguous f32, whatever the gradient's dtype; eight channels a
+    thread when C % 8 == 0 and g and the accumulator start on 16 bytes,
+    two otherwise. A gradient that is an offset view already contiguous
+    in f32 is read in place, so its offset decides."""
+    from iif_torch.ops.roi_align import _bwd_buffers
+
+    grad = _strided_copy(torch.randn(3, 7, 7, c).to(dtype), offset)
+    acc, g, got = _bwd_buffers((2, 5, 6, c), grad)
+    assert acc.shape == (2, 5, 6, c) and acc.dtype == torch.float32
+    assert g.dtype == torch.float32 and g.is_contiguous()
+    assert torch.equal(g, grad.float())
+    want = path if dtype == torch.float32 else (
+        "vec8" if c % 8 == 0 else "pair")   # a bf16 g is copied to f32
+    assert got == want
+
+
+def _k4_case_rois(rng, map_hw, scale, r, batch=2):
+    """``make_rois``'s (the whole map, border, outside, sub-cell and
+    wider-than-40-cell RoIs) plus a zero-size RoI, one with x2 < x1 and
+    y2 < y1, a pile of 16 identical RoIs and a pile of 16 sub-cell RoIs
+    inside one cell."""
+    rois = make_rois(rng, r, map_hw, scale, batch)
+    cell = 1.0 / scale
+    extra = [[0, 3 * cell, 2 * cell, 3 * cell, 2 * cell],
+             [1, 6.5 * cell, 4.5 * cell, 2.5 * cell, 1.5 * cell]]
+    extra += [[1, 2.2 * cell, 1.4 * cell, 9.7 * cell, 6.1 * cell]] * 16
+    x0, y0 = 4 * cell + rng.uniform(0, 0.5 * cell, (2, 16))
+    extra += [[0, a, b, a + 0.4 * cell, b + 0.3 * cell]
+              for a, b in zip(x0, y0)]
+    return torch.from_numpy(np.concatenate(
+        [rois, np.array(extra, np.float32)])).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [6, 258, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_paths_on_card(c, dtype):
+    """K4's two-channel path (C = 6, 258) and its eight-channel one
+    (C=1024) against the plain backward, through autograd, on RoIs with
+    piles of identical and of sub-cell RoIs, zero-size, reversed, outside
+    and whole-map ones: as ``_k4_matches_plain``. The launch counters
+    record the path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from iif_torch.ops.roi_align import grad_launches_by_path, reset_launches
+
+    rng = np.random.RandomState(40 + c)
+    feats = torch.from_numpy(rng.randn(2, 12, 20, c).astype(
+        np.float32)).to("cuda", dtype)
+    rois = _k4_case_rois(rng, (12, 20), 1 / 4, 64)
+    reset_launches()
+    _k4_matches_plain(feats, rois, (14, 14), 1 / 4, 0, True)
+    assert grad_launches_by_path == {"vec8" if c % 8 == 0 else "pair": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_offset_grad_view_on_card(dtype):
+    """A gradient that is a view 2 elements into its storage (an odd count
+    of channel pairs) takes K4's two-channel path, 4 elements in (16
+    bytes) the eight-channel one; both agree with the plain backward as
+    in ``_k4_matches_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from iif_torch.ops.roi_align import (
+        _launch_bwd,
+        grad_launches_by_path,
+        reset_launches,
+    )
+
+    rng = np.random.RandomState(50)
+    rois = _k4_case_rois(rng, C4_MAP, 1 / 16, 200)
+    shape = (2, *C4_MAP, 64)
+    g = torch.from_numpy(rng.randn(rois.shape[0], 14, 14, 64).astype(
+        np.float32)).cuda()
+    want = sum(roi_align_grad_reference(
+        torch.zeros(shape, device="cuda"), rois[i:i + 128], g[i:i + 128],
+        (14, 14), 1 / 16) for i in range(0, rois.shape[0], 128))
+    bound = 1e-5 * want.abs().max()
+    if dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -8 * want.abs()
+    for offset, path in ((2, "pair"), (4, "vec8")):
+        reset_launches()
+        got = _launch_bwd(shape, dtype, rois, _strided_copy(g, offset), 14,
+                          14, 2, 1 / 16, True)
+        torch.cuda.synchronize()
+        assert grad_launches_by_path == {path: 1}
+        assert got.dtype == dtype and got.shape == shape
+        assert ((got.float() - want).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [6, 1024])
+def test_k4_no_rois_on_card(c):
+    """R=0 on either path: a zero gradient of the map's shape and dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    leaf = torch.ones(1, 6, 8, c, dtype=torch.bfloat16, device="cuda",
+                      requires_grad=True)
+    roi_align(leaf, torch.zeros(0, 5, device="cuda"), (14, 14),
+              1 / 16).backward(torch.zeros(0, 14, 14, c, device="cuda"))
+    torch.cuda.synchronize()
+    assert leaf.grad.dtype == torch.bfloat16
+    assert leaf.grad.shape == leaf.shape
+    assert not leaf.grad.any()
