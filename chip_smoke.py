@@ -72,12 +72,30 @@
    CE) on a seeded b4 batch like 6.'s without masks and with 80 classes:
    as in 6., with K3's and K4's launches (and K1's and K2's: none)
    counted from 0 (every K3 and K4 launch on ``vec8``), and its stages.
-8. The card's name and power limit, the ``kernels`` JSON line, then the
+8. Training from files: ``python -m iif_torch.cli.train_det`` in the
+   process on the headline config as it stands, its annotation and image
+   paths overridden to a seeded synthetic LVIS v1-style set of 64 PNGs
+   (32 landscape, 32 portrait COCO sizes, 1203 classes, image counts and
+   frequencies from the set's own annotations; ``iif_torch/tools/
+   synthetic_lvis.py``), ``runner.max_epochs=1`` and
+   ``evaluation.interval=0``: one epoch of 16 b4 steps through the loader
+   over the six canvas buckets, K1's and K2's launches counted from 0
+   (one a size a step, all on ``vec8``), at least 3 buckets, every loss
+   finite, the frozen stage unchanged and trainable parameters moved,
+   ``epoch_1.pth``; K1 and K2 against their plain versions on one step's
+   own features and RoIs on a bucket below 800; a resume for 2 steps
+   under torch.profiler; the checkpoint served back by ``init_detector``
+   on one of the PNGs (read without cv2), its RoI features against the
+   plain version; ms/step by bucket (each bucket's first step apart),
+   img/s, the loader wait a step, the device's busy share, peak memory
+   and a sample's host time by part.
+9. The card's name and power limit, the ``kernels`` JSON line, then the
    device line as the last line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or the
 ``iif_torch`` package is not beside this file; any failed check raises.
 """
+import contextlib
 import json
 import math
 import shutil
@@ -463,10 +481,14 @@ def make_train_rois(rng, r, device):
     return torch.tensor(rois, dtype=torch.float32, device=device)
 
 
-def kernel_train_phase(torch, np):
-    """At the training shapes (B=4): K1 against its plain version, and K2,
-    through ``RoIAlignML.backward`` as autograd runs it in a training
-    step, against the plain backward."""
+def k2_row(torch, feats32, rois, g32, o, dt):
+    """K2, through ``RoIAlignML.backward`` as autograd runs it in a
+    training step, against the plain backward on one set of inputs, in
+    ``dt``: the error against GRAD_REL_TOL, K2's path, the autograd call's
+    time (``ms``) and its C entry's alone (``kernel_ms``: memset, kernel
+    and, for bf16, the cast), the plain backward's time and the bound;
+    its float4 reductions estimated from the RoIs on a line of their
+    own."""
     from iif_torch.ops.roi_align_ml import (
         _bwd_buffers,
         _bwd_call,
@@ -475,6 +497,69 @@ def kernel_train_phase(torch, np):
         roi_align_ml_grad_reference,
     )
 
+    r = rois.shape[0]
+    levels = [tuple(f.shape[1:3]) for f in feats32]
+    feats = [f.to(dt).requires_grad_() for f in feats32]
+    g = g32.to(dt)
+    out = roi_align_ml(feats, rois, (o, o))
+
+    def k2_call():
+        return torch.autograd.grad(out, feats, g, retain_graph=True)
+
+    got = k2_call()
+    torch.cuda.synchronize()
+    want = roi_align_ml_grad_reference(feats32, rois, g.float(), (o, o))
+    scale = max(w.abs().max().item() for w in want)
+    err, excess = 0.0, 0.0
+    for a, w in zip(got, want):
+        d = (a.float() - w).abs()
+        bound = GRAD_REL_TOL * scale
+        if dt == torch.bfloat16:
+            bound = bound + 2.0 ** -8 * w.abs()
+        err = max(err, d.max().item())
+        excess = max(excess, (d - bound).max().item())
+    ms = cuda_ms(k2_call)
+    # the C entry alone (memset, kernel and, for bf16, the cast)
+    shapes = [tuple(f.shape) for f in feats]
+    lvl, bidx = _roi_meta(rois, 4, 56.0)
+    acc, res, gk, path = _bwd_buffers(shapes, dt, g)
+    kernel_ms = graph_ms(lambda: _bwd_call(
+        acc, res, gk, path, shapes, rois, lvl, bidx, o, 2, (4, 8, 16, 32)))
+    del acc, res, gk
+    plain_ms = cuda_ms(lambda: roi_align_ml_grad_reference(
+        feats, rois, g, (o, o)), iters=1, reps=5)
+    bound_ms, bound_by, touched = roi_align_grad_bound(feats, rois, o)
+    lv = lvl.long()
+    dims = torch.tensor(levels, device="cuda")[lv]
+    row = {"o": o, "R": r, "B": feats32[0].shape[0], "levels": levels,
+           "dtype": str(dt).split(".")[-1], "path": path,
+           "max_abs_err": err, "max_grad": scale,
+           "tolerance": (f"{GRAD_REL_TOL} x max |grad|"
+                         + (" + 2^-8 x |value|"
+                            if dt == torch.bfloat16 else "")),
+           "ok": excess <= 0.0, "ms": ms, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / ms,
+           "kernel_bound_share": bound_ms / kernel_ms,
+           "touched_feature_rows": touched}
+    check(path == "vec8", "K2 takes vec8 at the training shapes")
+    log("kernel K2", json.dumps(row))
+    log("K2 atomics estimated from the RoIs", json.dumps({
+        "o": o, "dtype": row["dtype"], "levels": levels,
+        "float4_reductions": grad_reductions(
+            rois, o, 1.0 / 2.0 ** (lv + 2).float(), dims[:, 0],
+            dims[:, 1], 256),
+        "scalar_atomics_before": r * o * o * 16 * 256}))
+    if not row["ok"]:
+        raise RuntimeError(f"K2 disagrees with its plain version: {row}")
+    return row
+
+
+def kernel_train_phase(torch, np):
+    """At the training shapes (B=4): K1 against its plain version, and K2,
+    through ``RoIAlignML.backward`` as autograd runs it in a training
+    step, against the plain backward."""
     rng = np.random.RandomState(3)
     feats32 = [torch.tensor(rng.randn(TRAIN_BATCH, h, w, 256),
                             dtype=torch.float32, device="cuda")
@@ -487,64 +572,7 @@ def kernel_train_phase(torch, np):
         for dt in (torch.float32, torch.bfloat16):
             row = k1_row(torch, feats32, rois, o, dt)
             k1[(o, row["dtype"])] = row
-            feats = [f.to(dt).requires_grad_() for f in feats32]
-            g = g32.to(dt)
-            out = roi_align_ml(feats, rois, (o, o))
-
-            def k2_call():
-                return torch.autograd.grad(out, feats, g, retain_graph=True)
-
-            got = k2_call()
-            torch.cuda.synchronize()
-            want = roi_align_ml_grad_reference(feats32, rois, g.float(),
-                                               (o, o))
-            scale = max(w.abs().max().item() for w in want)
-            err, excess = 0.0, 0.0
-            for a, w in zip(got, want):
-                d = (a.float() - w).abs()
-                bound = GRAD_REL_TOL * scale
-                if dt == torch.bfloat16:
-                    bound = bound + 2.0 ** -8 * w.abs()
-                err = max(err, d.max().item())
-                excess = max(excess, (d - bound).max().item())
-            ms = cuda_ms(k2_call)
-            # the C entry alone (memset, kernel and, for bf16, the cast)
-            shapes = [tuple(f.shape) for f in feats]
-            lvl, bidx = _roi_meta(rois, 4, 56.0)
-            acc, res, gk, path = _bwd_buffers(shapes, dt, g)
-            kernel_ms = graph_ms(lambda: _bwd_call(
-                acc, res, gk, path, shapes, rois, lvl, bidx, o, 2,
-                (4, 8, 16, 32)))
-            del acc, res, gk
-            plain_ms = cuda_ms(lambda: roi_align_ml_grad_reference(
-                feats, rois, g, (o, o)), iters=1, reps=5)
-            bound_ms, bound_by, touched = roi_align_grad_bound(feats, rois,
-                                                               o)
-            lv = lvl.long()
-            dims = torch.tensor(LVIS_LEVELS, device="cuda")[lv]
-            row = {"o": o, "R": r, "B": TRAIN_BATCH,
-                   "dtype": str(dt).split(".")[-1], "path": path,
-                   "max_abs_err": err, "max_grad": scale,
-                   "tolerance": (f"{GRAD_REL_TOL} x max |grad|"
-                                 + (" + 2^-8 x |value|"
-                                    if dt == torch.bfloat16 else "")),
-                   "ok": excess <= 0.0, "ms": ms, "kernel_ms": kernel_ms,
-                   "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "bound_share": bound_ms / ms,
-                   "kernel_bound_share": bound_ms / kernel_ms,
-                   "touched_feature_rows": touched}
-            check(path == "vec8", "K2 takes vec8 at the training shapes")
-            log("kernel K2", json.dumps(row))
-            log("K2 atomics estimated from the RoIs", json.dumps({
-                "o": o, "dtype": row["dtype"],
-                "float4_reductions": grad_reductions(
-                    rois, o, 1.0 / 2.0 ** (lv + 2).float(), dims[:, 0],
-                    dims[:, 1], 256),
-                "scalar_atomics_before": r * o * o * 16 * 256}))
-            if not row["ok"]:
-                raise RuntimeError(f"K2 disagrees with its plain version: "
-                                   f"{row}")
+            row = k2_row(torch, feats32, rois, g32, o, dt)
             k2[(o, row["dtype"])] = row
     return k1, k2
 
@@ -959,6 +987,52 @@ def serving_images(np):
                    for hw in sizes]
 
 
+def request_vs_plain(torch, det, image):
+    """One request of ``det`` on ``image`` (an array or a path): its FPN
+    maps, RoIs and K1's outputs, recorded at the extractor, against the
+    plain RoIAlign on the same inputs (within one bf16 ulp), and the
+    class scores from each (within CLS_REL_TOL)."""
+    from iif_torch.detection.inference import inference_detector
+    from iif_torch.detection.roi_extractor import SingleRoIExtractor
+    from iif_torch.ops.roi_align_ml import roi_align_ml_reference
+
+    seen = []
+    extract = SingleRoIExtractor.__call__
+
+    def record(self, feats, rois):
+        out = extract(self, feats, rois)
+        seen.append((self.output_size[0], feats, rois, out))
+        return out
+
+    SingleRoIExtractor.__call__ = record
+    try:
+        inference_detector(det, image, masks=False)
+    finally:
+        SingleRoIExtractor.__call__ = extract
+    check([o for o, *_ in seen] == [7, 14], "one 7x7 and one 14x14 call")
+    compare = {}
+    with torch.inference_mode():
+        for o, nhwc, rois, k_feat in seen:
+            p_feat = roi_align_ml_reference(nhwc, rois, (o, o)).to(
+                k_feat.dtype)
+            ulps = ((k_feat.float() - p_feat.float()).abs()
+                    / bf16_ulp(p_feat.float())).max().item()
+            compare[f"roi_feats_{o}_max_err_ulps"] = ulps
+            if ulps > 1.0:
+                raise RuntimeError(f"{o}x{o} RoI features differ: {ulps}")
+            if o == 7:
+                bbox_head = det.model.roi_head.bbox_head
+                k_cls = bbox_head(k_feat)[0]
+                p_cls = bbox_head(p_feat)[0]
+                rel = ((k_cls - p_cls).abs().max()
+                       / p_cls.abs().max()).item()
+                compare["cls_score_max_rel_err"] = rel
+                compare["cls_score_tolerance"] = CLS_REL_TOL
+                if rel > CLS_REL_TOL:
+                    raise RuntimeError(f"cls_score differs: {rel}")
+    return compare
+
+
 def serving_phase(torch, np):
     from iif_torch.config import Config
     from iif_torch.detection.detector import maskrcnn_simple_test
@@ -971,13 +1045,11 @@ def serving_phase(torch, np):
         DetIIFLoss,
         compute_det_iif_from_counts,
     )
-    from iif_torch.detection.roi_extractor import SingleRoIExtractor
     from iif_torch.ops.nms import nms
     from iif_torch.ops.roi_align_ml import (
         grad_launches_by_size,
         reset_launches,
         roi_align_ml,
-        roi_align_ml_reference,
     )
 
     cfg = Config.fromfile(str(REPO / "configs/iif/iif_r50_1x.py"))
@@ -1071,40 +1143,7 @@ def serving_phase(torch, np):
 
     # one served request: its FPN maps, RoIs and kernel outputs, recorded
     # at the extractor, against the plain RoIAlign on the same inputs
-    seen = []
-    extract = SingleRoIExtractor.__call__
-
-    def record(self, feats, rois):
-        out = extract(self, feats, rois)
-        seen.append((self.output_size[0], feats, rois, out))
-        return out
-
-    SingleRoIExtractor.__call__ = record
-    try:
-        inference_detector(det, images[1], masks=False)
-    finally:
-        SingleRoIExtractor.__call__ = extract
-    check([o for o, *_ in seen] == [7, 14], "one 7x7 and one 14x14 call")
-    compare = {}
-    with torch.inference_mode():
-        for o, nhwc, rois, k_feat in seen:
-            p_feat = roi_align_ml_reference(nhwc, rois, (o, o)).to(
-                k_feat.dtype)
-            ulps = ((k_feat.float() - p_feat.float()).abs()
-                    / bf16_ulp(p_feat.float())).max().item()
-            compare[f"roi_feats_{o}_max_err_ulps"] = ulps
-            if ulps > 1.0:
-                raise RuntimeError(f"{o}x{o} RoI features differ: {ulps}")
-            if o == 7:
-                bbox_head = det.model.roi_head.bbox_head
-                k_cls = bbox_head(k_feat)[0]
-                p_cls = bbox_head(p_feat)[0]
-                rel = ((k_cls - p_cls).abs().max()
-                       / p_cls.abs().max()).item()
-                compare["cls_score_max_rel_err"] = rel
-                compare["cls_score_tolerance"] = CLS_REL_TOL
-                if rel > CLS_REL_TOL:
-                    raise RuntimeError(f"cls_score differs: {rel}")
+    compare = request_vs_plain(torch, det, images[1])
     log("request vs plain RoIAlign", json.dumps(compare))
     return {"b1_ms_per_image": spread(b1_ms),
             "b2_ms_per_image": spread(b2_ms),
@@ -1687,6 +1726,352 @@ def c4_training_phase(torch, np):
     return result
 
 
+FILES_IMAGES = 64                  # images of the synthetic LVIS set
+FILES_RESUME_STEPS = 2             # steps after the resume
+FILES_PREBUILT = 6                 # steps on batches built beforehand
+WATCH = ("backbone.layer1.0.conv1.weight", "backbone.layer2.0.conv1.weight",
+         "roi_head.bbox_head.fc_cls.weight",
+         "roi_head.mask_head.conv_logits.weight")
+
+
+def files_sizes():
+    """32 landscape and 32 portrait COCO sizes: each aspect group fills
+    whole b4 batches."""
+    from iif_torch.tools.synthetic_lvis import COCO_SIZES
+
+    half = FILES_IMAGES // 2
+    return ([COCO_SIZES[i % 3] for i in range(half)]
+            + [COCO_SIZES[3 + i % 3] for i in range(half)])
+
+
+@contextlib.contextmanager
+def patched(*changes):
+    """Set each (object, attribute, value) for the block, then restore."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in changes]
+    for obj, name, value in changes:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def busy_in_spans(prof, span):
+    """The CPU windows of the ``span`` record_function (each ends in a
+    device sync) and the device's busy time inside them: the union of
+    the CUDA kernels that start in a window. Returns (windows, window ms,
+    busy ms)."""
+    from torch.autograd import DeviceType
+
+    windows, kernels = [], []
+    for e in prof.events():
+        if e.name == span and e.device_type == DeviceType.CPU:
+            windows.append((e.time_range.start, e.time_range.end))
+        elif (e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)):
+            kernels.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(kernels):
+        if hi > end and any(a <= lo < b for a, b in windows):
+            busy += hi - max(lo, end)
+            end = hi
+    return len(windows), sum(b - a for a, b in windows) / 1e3, busy / 1e3
+
+
+def sample_host_shares(np, torch, ann_file, img_prefix, cfg, n=8):
+    """A train sample's host time split: decode (``read_image``), the
+    image resize alone, and the masks (the sample with masks less the
+    sample without), at the largest scale, over ``n`` images in one loader
+    worker's setting, each share of decode + the whole sample."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from iif_torch.cli.train_det import build_pipeline
+    from iif_torch.detection.datasets import build_dataset
+    from iif_torch.detection.image_io import read_image
+    from iif_torch.detection.pipeline import resize_bilinear, resized_shape
+
+    ds = build_dataset({"type": "LVISV1Dataset", "ann_file": ann_file,
+                        "img_prefix": img_prefix})
+    pipe = build_pipeline(cfg)
+    bare = build_pipeline(cfg)
+    bare.with_mask = False
+    t = {"decode": 0.0, "resize": 0.0, "sample": 0.0, "sample_no_masks": 0.0}
+    last = len(pipe.scales) - 1
+
+    def one(i):
+        t0 = time.perf_counter()
+        img = read_image(ds.image_path(i))
+        t1 = time.perf_counter()
+        ann = ds.get_ann(i)
+        pipe.sample(img, ann, np.random.RandomState(i), scale_idx=last)
+        t2 = time.perf_counter()
+        bare.sample(img, ann, np.random.RandomState(i), scale_idx=last)
+        t3 = time.perf_counter()
+        _, nh, nw = resized_shape(*img.shape[:2], pipe.scales[last],
+                                  pipe.canvas_of[last])
+        resize_bilinear(torch.from_numpy(img), nh, nw)
+        t4 = time.perf_counter()
+        t["decode"] += t1 - t0
+        t["sample"] += t2 - t1
+        t["sample_no_masks"] += t3 - t2
+        t["resize"] += t4 - t3
+
+    # in a thread set up as the loader's workers are (one intra-op thread)
+    with ThreadPoolExecutor(1, initializer=torch.set_num_threads,
+                            initargs=(1,)) as pool:
+        list(pool.map(one, range(n)))
+        threads = pool.submit(torch.get_num_threads).result()
+    total = t["decode"] + t["sample"]
+    return {"images": n, "ms_per_sample": total / n * 1e3,
+            "decode_share": t["decode"] / total,
+            "resize_share": t["resize"] / total,
+            "mask_share": (t["sample"] - t["sample_no_masks"]) / total,
+            "intra_op_threads": threads}
+
+
+def files_training_phase(torch, np):
+    """``python -m iif_torch.cli.train_det`` in the process on the
+    headline config as it stands (1203 classes, bf16 trunk, b4, six
+    canvas buckets, masks at stride 2 bit-packed), its annotation and
+    image paths overridden to a seeded synthetic LVIS set of FILES_IMAGES
+    PNGs on disk, ``runner.max_epochs=1`` and ``evaluation.interval=0``:
+    one epoch through the loader with K1's and K2's launches counted from
+    0 (one a size a step, all on ``vec8``), at least 3 buckets, every
+    loss finite, the frozen stage unchanged and trainable parameters
+    moved, ``epoch_1.pth`` written; K1 and K2 held against their plain
+    versions on one step's features and RoIs on a bucket other than 800;
+    a resume for FILES_RESUME_STEPS steps under torch.profiler (the
+    device's busy share in the steps); the checkpoint served back by
+    ``init_detector`` on one of the training images, its RoI features
+    against the plain version; the host time of a sample by part."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import iif_torch.engine.detection as engine_mod
+    from iif_torch.cli import train_det
+    from iif_torch.config import Config, parse_cfg_options
+    from iif_torch.detection.datasets import build_dataset
+    from iif_torch.detection.inference import (
+        inference_detector,
+        init_detector,
+    )
+    from iif_torch.detection.pipeline import DetectionLoader
+    from iif_torch.detection.roi_extractor import SingleRoIExtractor
+    from iif_torch.ops.roi_align_ml import (
+        grad_launches_by_path,
+        grad_launches_by_size,
+        reset_launches,
+        roi_align_ml,
+    )
+    from iif_torch.tools.synthetic_lvis import write_synthetic_lvis
+    from iif_torch.utils.checkpoint import read_meta
+
+    config = str(REPO / "configs/iif/iif_r50_1x.py")
+    steps, waits, metrics, captured, watch = [], [], [], {}, {}
+
+    def timed_step(self, state, batch, _step=engine_mod.DetectionTrainer
+                   .train_step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function("files_step"):
+            out = _step(self, state, batch)
+            torch.cuda.synchronize()
+        steps.append((int(batch["image"].shape[1]),
+                      (time.perf_counter() - t0) * 1e3))
+        metrics.append(out[1])
+        return out
+
+    def timed_iter(self, _iter=DetectionLoader.__iter__):
+        batches = _iter(self)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    return
+                waits.append((time.perf_counter() - t0) * 1e3)
+                yield batch
+        finally:
+            batches.close()
+
+    def capture(self, feats, rois, _extract=SingleRoIExtractor.__call__):
+        out = _extract(self, feats, rois)
+        h, o = feats[0].shape[1] * 4, self.output_size[0]
+        if (h != CANVAS[0] and o not in captured
+                and captured.setdefault("h", h) == h):
+            captured[o] = ([f.detach().float() for f in feats[:4]],
+                           rois.detach().clone())
+        return out
+
+    def watched(*args, _make=engine_mod.trainer_from_config, **kw):
+        trainer = _make(*args, **kw)
+        params = dict(trainer.model.named_parameters())
+        watch.update({n: params[n].detach().clone() for n in WATCH})
+        return trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        data = write_synthetic_lvis(str(Path(tmp) / "lvis"), files_sizes(),
+                                    NUM_CLASSES, seed=0)
+        log(f"synthetic LVIS set of {FILES_IMAGES} PNGs s "
+            f"{time.time() - t0:.3f}")
+        options = [f"data.train.ann_file={data['ann_file']}",
+                   f"data.train.img_prefix={data['img_prefix']}",
+                   "evaluation.interval=0"]
+        work = str(Path(tmp) / "work")
+        argv = [config, "--work-dir", work]
+
+        # one epoch: K1 and K2 counted from 0 over all its steps
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with patched((engine_mod.DetectionTrainer, "train_step", timed_step),
+                     (DetectionLoader, "__iter__", timed_iter),
+                     (SingleRoIExtractor, "__call__", capture),
+                     (engine_mod, "trainer_from_config", watched)):
+            trainer, state = train_det.main(
+                argv + ["--cfg-options", *options, "runner.max_epochs=1"])
+        run_s = time.perf_counter() - t0
+        launches = {"K1": dict(roi_align_ml.launches_by_size),
+                    "K2": dict(grad_launches_by_size)}
+        by_path = {"K1": dict(roi_align_ml.launches_by_path),
+                   "K2": dict(grad_launches_by_path)}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = len(steps)
+        log("files path launches", json.dumps(launches), "by kernel path",
+            json.dumps(by_path))
+        check(n == FILES_IMAGES // TRAIN_BATCH == state.step,
+              f"one epoch of {FILES_IMAGES // TRAIN_BATCH} steps: {n}")
+        for k in ("K1", "K2"):
+            check(launches[k] == {7: n, 14: n},
+                  f"{k} once a size a step on the files path")
+            check_vec8(f"{k} on the files path", by_path[k], 2 * n)
+        canvases = sorted({h for h, _ in steps})
+        check(len(canvases) >= 3, f"at least 3 canvas buckets: {canvases}")
+        losses = [{k: v.item() for k, v in m.items()} for m in metrics]
+        for i, row in enumerate(losses):
+            for k, v in row.items():
+                check(math.isfinite(v), f"finite {k} at step {i}")
+        params = dict(trainer.model.named_parameters())
+        moved = {k: (params[k].detach() - v).abs().max().item()
+                 for k, v in watch.items()}
+        log("files parameter change", json.dumps(moved))
+        check(moved["backbone.layer1.0.conv1.weight"] == 0.0,
+              "frozen stage-1 weight unchanged")
+        check(all(v > 0 for k, v in moved.items() if "layer1" not in k),
+              "trainable parameters moved")
+        ckpt = str(Path(work) / "checkpoints" / "epoch_1.pth")
+        check(read_meta(ckpt)["iter"] == n, "epoch_1.pth after the epoch")
+
+        # the same trainer on the epoch's first batches built beforehand:
+        # steps with the loader idle, against the epoch's
+        cfg = Config.fromfile(config)
+        cfg.merge_from_options(parse_cfg_options(
+            options + [f"data.test.ann_file={data['ann_file']}"]))
+        loader = DetectionLoader(
+            build_dataset({k: v for k, v in cfg.data["train"].items()
+                           if k != "oversample_thr"}),
+            train_det.build_pipeline(cfg),
+            batch_size=cfg.data["samples_per_gpu"], seed=cfg.seed)
+        batches = []
+        for batch in loader:
+            batches.append({k: v for k, v in batch.items()
+                            if k in engine_mod.FEED_KEYS})
+            if len(batches) == FILES_PREBUILT:
+                break
+        prebuilt = []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            prebuilt.append((int(batch["image"].shape[1]),
+                             (time.perf_counter() - t0) * 1e3))
+        del batches
+
+        # K1 and K2 on one step's features and RoIs, a bucket below 800
+        check(7 in captured and 14 in captured,
+              f"a step on a bucket other than {CANVAS[0]}")
+        k1, k2 = {}, {}
+        rng = np.random.RandomState(5)
+        for o in (7, 14):
+            feats32, rois = captured[o]
+            g32 = torch.tensor(rng.randn(rois.shape[0], o, o, 256),
+                               dtype=torch.float32, device=rois.device)
+            for dt in (torch.float32, torch.bfloat16):
+                row = k1_row(torch, feats32, rois, o, dt)
+                k1[(o, row["dtype"])] = row
+                row = k2_row(torch, feats32, rois, g32, o, dt)
+                k2[(o, row["dtype"])] = row
+        bucket = captured.pop("h")
+        levels = [list(f.shape[1:3]) for f in captured[7][0]]
+        captured.clear()
+
+        # resume for FILES_RESUME_STEPS steps, profiled
+        first = len(steps)
+        with patched((engine_mod.DetectionTrainer, "train_step", timed_step),
+                     (DetectionLoader, "__iter__", timed_iter)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, resumed = train_det.main(argv + [
+                    "--resume-from", ckpt, "--max-steps",
+                    str(FILES_RESUME_STEPS), "--cfg-options", *options,
+                    "runner.max_epochs=2"])
+        check(resumed.step == n + FILES_RESUME_STEPS,
+              f"resumed at step {n}, {FILES_RESUME_STEPS} more")
+        spans, span_ms, busy_ms = busy_in_spans(prof, "files_step")
+        check(spans == FILES_RESUME_STEPS, "profiled resume steps")
+
+        # the checkpoint served back on a training image (PNG, no cv2)
+        det = init_detector(cfg, ckpt, device="cuda")
+        image = str(Path(data["img_prefix"]) / "train2017" /
+                    "000000000001.png")
+        served = inference_detector(det, image, masks=False)
+        check(served["boxes"].shape == (300, 4) and served["valid"].any(),
+              "300 detections, some valid")
+        compare = request_vs_plain(torch, det, image)
+        log("served checkpoint vs plain RoIAlign", json.dumps(compare))
+        shares = sample_host_shares(np, torch, data["ann_file"],
+                                    data["img_prefix"], cfg)
+
+    epoch = steps[:first]
+    by_bucket = {}
+    for h in canvases:
+        ms = [t for c, t in epoch if c == h]
+        by_bucket[f"{h}x{CANVAS[1]}"] = {
+            "steps": len(ms), "first_ms": ms[0],
+            "after_first": spread(ms[1:]) if len(ms) > 1 else None}
+    steady = [t for i, (c, t) in enumerate(epoch)
+              if c in {cc for cc, _ in epoch[:i]}]
+    epoch_ms = sum(t for _, t in epoch) + sum(waits[:first])
+    per_step_busy = busy_ms / spans
+    return {"steps": n, "buckets": by_bucket,
+            "step_ms_after_first_of_bucket": spread(steady),
+            "step_ms_prebuilt_batches": spread([t for _, t in prebuilt]),
+            "prebuilt_buckets": [h for h, _ in prebuilt],
+            "img_per_s": FILES_IMAGES * 1e3 / epoch_ms,
+            "img_per_s_steady": TRAIN_BATCH * 1e3
+                                / statistics.median(steady),
+            "loader_wait_ms": spread(waits[:first]),
+            "run_s": run_s, "first_loss": losses[0]["loss"],
+            "last_loss": losses[-1]["loss"],
+            "launches": {k: v for k, v in launches.items()},
+            "peak_allocated_gib": peak_gb,
+            "resume_profile": {
+                "steps": spans, "step_window_ms": span_ms,
+                "device_busy_ms": busy_ms,
+                "device_busy_share_profiled": busy_ms / span_ms,
+                "device_busy_share_of_epoch_median":
+                    per_step_busy / statistics.median(steady),
+                "device_busy_share_of_prebuilt_median":
+                    per_step_busy / statistics.median(
+                        [t for _, t in prebuilt])},
+            "kernel_bucket": f"{bucket}x{CANVAS[1]}", "kernel_levels": levels,
+            "served": compare, "host_sample": shares, "k1": k1, "k2": k2}
+
+
 def main() -> int:
     import torch
 
@@ -1745,6 +2130,9 @@ def main() -> int:
     log("training", json.dumps(train), "card", card)
     c4_train = c4_training_phase(torch, np)
     log("C4 training", json.dumps(c4_train), "card", card)
+    files = files_training_phase(torch, np)
+    files_k1, files_k2 = files.pop("k1"), files.pop("k2")
+    log("training from files", json.dumps(files), "card", card)
 
     # one entry per kernel, output size and path shape: K1 at the serving
     # shapes with the serving paths' launches, K1 and K2 at the training
@@ -1855,6 +2243,30 @@ def main() -> int:
         kernels[-1]["f32_kernel_ms"] = rows["float32"]["kernel_ms"]
         if key == "K4":
             kernels[-1]["pair"] = rows["pair"]
+    # K1 and K2 on the files path: one step's own features and RoIs on a
+    # bucket below 800, with that path's launches
+    for key, rows in (("K1", files_k1), ("K2", files_k2)):
+        for o in (7, 14):
+            row = rows[(o, "bfloat16")]
+            kernels.append({
+                "name": ("roi_align_ml" if key == "K1" else
+                         "roi_align_ml_grad") + f"_{o}x{o}_files",
+                "route": "cuda", "source": SOURCE, "replaces": REPLACES[key],
+                "launches": files["launches"][key].get(o, 0),
+                "launches_by_path": {
+                    "train_from_files": files["launches"][key].get(o, 0)},
+                "max_abs_err": row["max_abs_err"],
+                "tolerance": row["tolerance"],
+                "f32_max_abs_err": rows[(o, "float32")]["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None, "kernel_ms": row["kernel_ms"],
+                "path": row["path"], "bound_share": row["bound_share"],
+                "kernel_bound_share": row["kernel_bound_share"],
+                "shape": f"R={row['R']} bf16 B={row['B']} C=256 on the "
+                         f"{files['kernel_bucket']} bucket's levels "
+                         f"{files['kernel_levels']}, a training step's own "
+                         "features and RoIs"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

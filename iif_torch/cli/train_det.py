@@ -1,0 +1,209 @@
+"""Detection training CLI: port of ``iif_tpu/cli/train_det.py`` (the
+reference's ``instance_segmentation/tools/train.py``) for one process on
+one card::
+
+    python -m iif_torch.cli.train_det configs/iif/iif_r50_1x.py \\
+        --work-dir runs/iif_r50 [--cfg-options data.samples_per_gpu=8] \\
+        [--resume-from CKPT] [--load-from CKPT] [--max-steps N] \\
+        [--device cuda]
+
+It writes ``config_dump.py`` and a ``.log.json`` under the work
+directory; builds the train dataset (``oversample_thr`` feeds the
+loader's repeat factors), the train pipeline (uint8 canvas, bit-packed
+masks) and the loader at ``samples_per_gpu``; checks the dataset's class
+count against the model's (mmdet's ``NumClassCheckHook``); builds the
+classification loss and ``trainer_from_config``'s trainer; overlays
+``model.pretrained_backbone``, then ``--resume-from`` (model, optimizer
+momentum, scheduler, step, epoch), then ``--load-from`` (weights); runs
+the epochs (``--max-steps`` caps each) and writes a checkpoint at
+``checkpoint_config.interval`` and after the last epoch
+(``iif_torch/utils/checkpoint.py``).
+
+What it cannot run it refuses with ``NotImplementedError`` before
+training: FASA's dynamic runner, EMA and other custom hooks (the YOLOX
+mode switch among them), ``--tp``, ``--selectp``, ``pipeline.uint8=
+False``, ``pipeline.pack_masks=False``, and an ``evaluation.interval``
+the run would reach; the loss,
+the detector, the pipeline and the trainer refuse their own unported
+knobs (Seesaw, other families, extras, ...).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Iterator, List, Optional, Tuple
+
+from iif_torch.config import Config, parse_cfg_options
+from iif_torch.detection.datasets import build_dataset
+from iif_torch.detection.inference import build_loss_cls
+from iif_torch.detection.pipeline import DetectionLoader, DetectionPipeline
+from iif_torch.detection.pretrained import load_pretrained_backbone
+from iif_torch.device import resolve_device
+from iif_torch.engine import detection as engine
+from iif_torch.utils.checkpoint import (
+    load_weights,
+    read_meta,
+    restore,
+    save_checkpoint,
+)
+from iif_torch.utils.logging import TrainLogWriter
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="Train a detector")
+    p.add_argument("config", help="config file path")
+    p.add_argument("--work-dir", default=None)
+    p.add_argument("--resume-from", default=None)
+    p.add_argument("--load-from", default=None)
+    p.add_argument("--selectp", default=0, type=int,
+                   help="decoupled fine-tuning (not ported)")
+    p.add_argument("--seed", default=None, type=int)
+    p.add_argument("--cfg-options", nargs="+", default=[])
+    p.add_argument("--max-steps", default=None, type=int,
+                   help="cap train steps per epoch (smoke runs)")
+    p.add_argument("--tp", default=None, type=int,
+                   help="tensor-parallel degree (not ported)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def refuse_unported(cfg: Config, args: argparse.Namespace,
+                    start_epoch: int) -> None:
+    """``NotImplementedError`` for what this CLI cannot run."""
+    hooks = [h.get("type") for h in cfg.get("custom_hooks", []) or []]
+    interval = cfg.get("evaluation", {}).get("interval", 0)
+    epochs = range(start_epoch, cfg.runner["max_epochs"])
+    unported = {
+        "--tp (tensor parallelism)":
+            (args.tp or cfg.get("parallel", {}).get("tp", 1)) > 1,
+        "--selectp (decoupled fine-tuning)": bool(args.selectp),
+        "runner EpochBasedDynamicRunner (FASA)":
+            cfg.runner.get("type") == "EpochBasedDynamicRunner",
+        "fasa_cfg": cfg.get("fasa_cfg") is not None,
+        f"custom_hooks {hooks} (EMA, YOLOX mode switch)": bool(hooks),
+        "pipeline uint8=False": not cfg.get("pipeline", {}).get("uint8",
+                                                                True),
+        "pipeline pack_masks=False": not cfg.get("pipeline", {}).get(
+            "pack_masks", True),
+        f"evaluation every {interval} epochs (evaluation)": bool(interval)
+            and any((e + 1) % interval == 0 for e in epochs),
+    }
+    for knob, bad in unported.items():
+        if bad:
+            raise NotImplementedError(f"{knob} is not ported")
+
+
+def build_pipeline(cfg: Config) -> DetectionPipeline:
+    """The train pipeline as the JAX CLI builds it by default (uint8
+    canvas, bit-packed masks)."""
+    pcfg = cfg.get("pipeline", {})
+    return DetectionPipeline(
+        canvas=tuple(pcfg.get("canvas", (800, 1344))),
+        scales=[tuple(s) for s in pcfg.get("scales", [(1333, 800)])],
+        flip_prob=pcfg.get("flip_prob", 0.5),
+        max_gt=pcfg.get("max_gt", 100),
+        with_mask=cfg.model.get("with_mask", True),
+        mask_stride=pcfg.get("mask_stride", 1),
+        canvas_buckets=pcfg.get("canvas_buckets", False),
+        keep_ratio=pcfg.get("keep_ratio", True),
+        extra_transforms=pcfg.get("extras", []),
+        with_seg=pcfg.get("with_seg", False),
+        max_proposals=pcfg.get(
+            "max_proposals",
+            512 if not cfg.model.get("with_rpn", True) else 0))
+
+
+class _Capped:
+    """The first ``n`` batches of ``loader`` an epoch; closes the
+    loader's iterator when done."""
+
+    def __init__(self, loader: DetectionLoader, n: int):
+        self.loader = loader
+        self.n = n
+
+    def __len__(self) -> int:
+        return min(len(self.loader), self.n)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self) -> Iterator:
+        batches = iter(self.loader)
+        try:
+            for _ in range(len(self)):
+                yield next(batches)
+        finally:
+            batches.close()
+
+
+def main(argv: Optional[List[str]] = None
+         ) -> Tuple[engine.DetectionTrainer, engine.DetTrainState]:
+    """Runs the training; returns the trainer and its final state."""
+    args = parse_args(argv)
+    cfg = Config.fromfile(args.config)
+    cfg.merge_from_options(parse_cfg_options(args.cfg_options))
+    device = resolve_device(args.device)
+    resume = args.resume_from or cfg.get("resume_from")
+    start_epoch = int(read_meta(resume)["epoch"]) if resume else 0
+    refuse_unported(cfg, args, start_epoch)
+    work_dir = args.work_dir or os.path.join(
+        "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
+    os.makedirs(work_dir, exist_ok=True)
+    cfg.dump(os.path.join(work_dir, "config_dump.py"))
+    seed = args.seed if args.seed is not None else cfg.get("seed", 0)
+
+    dcfg = cfg.data
+    train_ds = build_dataset({k: v for k, v in dcfg["train"].items()
+                              if k != "oversample_thr"})
+    loader = DetectionLoader(
+        train_ds, build_pipeline(cfg),
+        batch_size=dcfg.get("samples_per_gpu", 4),
+        oversample_thr=dcfg["train"].get("oversample_thr", 0.0), seed=seed)
+    num_classes = cfg.model["num_classes"]
+    if len(train_ds.CLASSES) != num_classes:
+        raise ValueError(
+            f"model.num_classes={num_classes} != dataset classes "
+            f"{len(train_ds.CLASSES)} ({dcfg['train'].get('ann_file')})")
+    loss_cls = build_loss_cls(cfg.loss_cls, train_ds, num_classes)
+
+    trainer = engine.trainer_from_config(
+        cfg, loss_cls, steps_per_epoch=max(len(loader), 1), seed=seed,
+        device=device)
+    state = trainer.init_state()
+    if cfg.model.get("pretrained_backbone"):
+        load_pretrained_backbone(trainer.model,
+                                 cfg.model["pretrained_backbone"])
+    if resume:
+        restore(resume, trainer.model, state)
+    load_from = args.load_from or cfg.get("load_from")
+    if load_from:
+        load_weights(load_from, trainer.model)
+
+    log_writer = TrainLogWriter(
+        work_dir, tensorboard=cfg.get("log_config", {}).get("tensorboard",
+                                                            True))
+    log_writer.write_env_header(exp_name=os.path.basename(args.config),
+                                seed=cfg.get("seed"))
+    max_epochs = cfg.runner["max_epochs"]
+    interval = cfg.get("checkpoint_config", {}).get("interval", 1)
+    print(f"Start training: {max_epochs} epochs, {len(loader)} "
+          f"steps/epoch on {device}")
+    try:
+        for epoch in range(start_epoch, max_epochs):
+            state, _ = trainer.train_one_epoch(
+                state, _Capped(loader, args.max_steps) if args.max_steps
+                else loader, epoch,
+                print_freq=cfg.get("log_config", {}).get("interval", 50),
+                log_writer=log_writer)
+            if (epoch + 1) % interval == 0 or epoch == max_epochs - 1:
+                save_checkpoint(work_dir, epoch + 1, trainer.model, state,
+                                cfg.pretty_text())
+    finally:
+        log_writer.close()
+    print("done")
+    return trainer, state
+
+
+if __name__ == "__main__":
+    main()

@@ -19,6 +19,7 @@ from iif_torch.detection.detector import (
     build_detector,
     random_init_,
 )
+from iif_torch.detection.image_io import read_image
 from iif_torch.detection.losses import (
     DetCrossEntropyLoss,
     DetIIFLoss,
@@ -106,11 +107,10 @@ def init_detector(config: Union[str, Config],
         loss_cls = DetCrossEntropyLoss(num_classes=num_classes)
 
     pcfg = cfg.get("pipeline", {})
-    if not pcfg.get("keep_ratio", True):
-        raise NotImplementedError("keep_ratio=False is not ported")
     pipeline = DetectionPipeline(
         canvas=tuple(pcfg.get("canvas", (800, 1344))),
-        scales=[tuple(s) for s in pcfg.get("scales", [(1333, 800)])])
+        scales=[tuple(s) for s in pcfg.get("scales", [(1333, 800)])],
+        keep_ratio=pcfg.get("keep_ratio", True))
     if checkpoint:
         load_checkpoint(model, checkpoint)
     else:
@@ -126,9 +126,7 @@ def _preprocess(detector: Detector, image: Union[str, np.ndarray]
                 ) -> Tuple[Dict[str, Any], Tuple[int, int]]:
     """Load one image and resize/pad it onto the static canvas."""
     if isinstance(image, str):
-        import cv2
-
-        image = cv2.cvtColor(cv2.imread(image), cv2.COLOR_BGR2RGB)
+        image = read_image(image)
     h, w = image.shape[:2]
     return detector.pipeline(image, detector.device), (h, w)
 

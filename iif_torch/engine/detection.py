@@ -1,10 +1,11 @@
 """Detection trainer: port of ``iif_tpu/engine/detection.py``
-(``DetectionTrainer`` with ``init_state`` and one train step, and
-``frozen_backbone_mask``) for the MaskRCNN and the Faster R-CNN C4
-losses, with ``grad_accum=1`` and no EMA, FASA, Seesaw or Dynamic R-CNN
-state. The step dispatches on the model as the JAX trainer does
-(``engine/detection.py:307-312`` for C4): ``maskrcnn_loss`` for
-``MaskRCNN``, ``c4_loss`` for ``C4FasterRCNN``; other families raise.
+(``DetectionTrainer`` with ``init_state``, one train step and
+``train_one_epoch``, and ``frozen_backbone_mask``) for the MaskRCNN and
+the Faster R-CNN C4 losses, with ``grad_accum=1`` and no EMA, FASA,
+Seesaw or Dynamic R-CNN state. The step dispatches on the model as the
+JAX trainer does (``engine/detection.py:307-312`` for C4):
+``maskrcnn_loss`` for ``MaskRCNN``, ``c4_loss`` for ``C4FasterRCNN``;
+other families raise.
 
 The JAX step folds the step number into its base key; here each step
 draws its sampling noise from a ``torch.Generator`` seeded from
@@ -12,11 +13,19 @@ draws its sampling noise from a ``torch.Generator`` seeded from
 and their sum under ``"loss"``, as device tensors (nothing syncs with the
 host). The backward and the optimizer are ``record_function`` spans
 (``backward``, ``optimizer``) beside the loss's stage spans.
+
+``train_one_epoch`` reads the metrics back asynchronously, as the JAX
+package's does: a step's metrics wait in a window of ``SYNC_WINDOW``
+steps and are read back (one copy a step) when it fills, and all of them
+at each print point; a non-finite loss raises ``FloatingPointError`` at
+read-back (mmdet's ``CheckInvalidLossHook`` fires at that granularity
+too).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.profiler import record_function
@@ -32,6 +41,13 @@ from iif_torch.detection.detector import (
 from iif_torch.detection.init import fresh_init_
 from iif_torch.device import resolve_device
 from iif_torch.engine.schedules import build_lr_schedule, build_optimizer
+from iif_torch.utils.metrics import MetricLogger
+
+# the batch keys the losses read (``engine/detection.py:455-460``, less
+# the semantic maps and proposals the port does not train with)
+FEED_KEYS = ("image", "gt_boxes", "gt_labels", "gt_valid", "gt_masks",
+             "gt_masks_packed")
+SYNC_WINDOW = 4           # steps of metrics in flight before a read-back
 
 
 def frozen_param(name: str, frozen_stages: int) -> bool:
@@ -107,6 +123,61 @@ class DetectionTrainer:
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
         return state, metrics
+
+    def train_one_epoch(self, state: DetTrainState, loader, epoch: int,
+                        print_freq: int = 50, log_writer=None
+                        ) -> Tuple[DetTrainState, MetricLogger]:
+        """One epoch of ``loader`` (``engine/detection.py:417-482``):
+        ``loader.set_epoch(epoch)``, a step a batch on its ``FEED_KEYS``,
+        the metrics read back as the module notes say, a ``.log.json``
+        record (with the learning rate) at each print point when
+        ``log_writer`` is given. Closes the loader's iterator before it
+        returns or raises."""
+        logger = MetricLogger()
+        loader.set_epoch(epoch)
+        total = len(loader)
+
+        def sink(rec):
+            if log_writer is None:
+                return
+            step = state.step - 1            # the step just taken
+            log_writer.write({"mode": "train", "epoch": epoch + 1, **rec,
+                              "lr": float(self.lr_schedule(step))},
+                             step=step)
+
+        pending: List[Dict[str, torch.Tensor]] = []
+
+        def absorb(metrics):
+            keys = list(metrics)
+            host = dict(zip(keys, torch.stack(
+                [metrics[k].float() for k in keys]).tolist()))
+            if not math.isfinite(host.get("loss", 0.0)):
+                raise FloatingPointError(
+                    f"loss became non-finite at epoch {epoch} "
+                    f"(metrics: {host})")
+            logger.update(**host)
+
+        batches = iter(loader)
+        try:
+            for i, batch in enumerate(logger.log_every(
+                    batches, print_freq, f"Epoch: [{epoch}]", total=total,
+                    sink=sink)):
+                state, metrics = self.train_step(
+                    state, {k: v for k, v in batch.items()
+                            if k in FEED_KEYS})
+                pending.append(metrics)
+                if print_freq and (i % print_freq == 0 or i == total - 1):
+                    while pending:
+                        absorb(pending.pop(0))
+                elif len(pending) >= SYNC_WINDOW:
+                    absorb(pending.pop(0))
+            while pending:
+                absorb(pending.pop(0))
+        finally:
+            close = getattr(batches, "close", None)
+            if close is not None:
+                close()
+        return state, logger
 
 
 def _loss_fn(model) -> Callable:
