@@ -77,8 +77,9 @@
    paths overridden to a seeded synthetic LVIS v1-style set of 64 PNGs
    (32 landscape, 32 portrait COCO sizes, 1203 classes, image counts and
    frequencies from the set's own annotations; ``iif_torch/tools/
-   synthetic_lvis.py``), ``runner.max_epochs=1`` and
-   ``evaluation.interval=0``: one epoch of 16 b4 steps through the loader
+   synthetic_lvis.py``) and ``runner.max_epochs=1`` (the config's
+   evaluation, every 12 epochs, is not reached): one epoch of 16 b4 steps
+   through the loader
    over the six canvas buckets, K1's and K2's launches counted from 0
    (one a size a step, all on ``vec8``), at least 3 buckets, every loss
    finite, the frozen stage unchanged and trainable parameters moved,
@@ -89,7 +90,32 @@
    plain version; ms/step by bucket (each bucket's first step apart),
    img/s, the loader wait a step, the device's busy share, peak memory
    and a sample's host time by part.
-9. The card's name and power limit, the ``kernels`` JSON line, then the
+9. Evaluation: ``python -m iif_torch.cli.test_det`` in the process on
+   the headline config as it stands (1203 classes, bf16 trunk,
+   ``score_thr=1e-4``, 300 detections, masks, b4) with the files phase's
+   checkpoint (its work directory), on a seeded LVIS v1-style val set of
+   32 PNGs with negative and not-exhaustive category ids
+   (``data.test.*``), ``--eval bbox segm --out``: s/image (median and
+   spread after the first batch, the first apart), each batch split into
+   the loader, the device forward (drained), the masks' paste and
+   read-back, the RLE encode and the results conversion, the evaluator's
+   seconds, detections per image and both AP dicts (near 0 after 16
+   steps: printed, not checked). Checks: K1's launches from 0 twice a
+   batch, all on ``vec8``, K2-K4 none; the first batch's RoI features and
+   class scores against the plain RoIAlign; the rescaled boxes equal
+   NumPy's true division; the val set's gt as detections scores AP 1
+   (bbox, segm, and each of APr/APc/APf with members); the AP dicts
+   through the C++ matcher and IoU equal the plain Python ones;
+   ``results.json`` reads back as the records.
+10. Overfit: ``iif_torch/tools/overfit.py``'s config and 8 seeded
+   bright-squares PNGs (MaskRCNN R50-FPN, 2 classes, 96x128, b4, 40
+   epochs, the evaluation hook after the last), ``train_det`` then
+   ``test_det`` in the process: bbox and segm AP at least 0.5, the hook's
+   AP equal to ``test_det``'s, K1's and K2's launches from 0 (all on
+   ``vec8``), ms/step. Then K1 on the first evaluation batch's features
+   and RoIs, and K1 and K2 on the first overfit step's, against their
+   plain versions (rows of their own in the ``kernels`` line).
+11. The card's name and power limit, the ``kernels`` JSON line, then the
    device line as the last line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or the
@@ -102,6 +128,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -994,7 +1021,6 @@ def request_vs_plain(torch, det, image):
     class scores from each (within CLS_REL_TOL)."""
     from iif_torch.detection.inference import inference_detector
     from iif_torch.detection.roi_extractor import SingleRoIExtractor
-    from iif_torch.ops.roi_align_ml import roi_align_ml_reference
 
     seen = []
     extract = SingleRoIExtractor.__call__
@@ -1009,6 +1035,16 @@ def request_vs_plain(torch, det, image):
         inference_detector(det, image, masks=False)
     finally:
         SingleRoIExtractor.__call__ = extract
+    return features_vs_plain(torch, det.model, seen)
+
+
+def features_vs_plain(torch, model, seen):
+    """The (output size, FPN maps, RoIs, K1's output) of one forward's two
+    extractor calls against the plain RoIAlign on the same inputs (within
+    one bf16 ulp), and ``model``'s class scores from each (within
+    CLS_REL_TOL)."""
+    from iif_torch.ops.roi_align_ml import roi_align_ml_reference
+
     check([o for o, *_ in seen] == [7, 14], "one 7x7 and one 14x14 call")
     compare = {}
     with torch.inference_mode():
@@ -1021,7 +1057,7 @@ def request_vs_plain(torch, det, image):
             if ulps > 1.0:
                 raise RuntimeError(f"{o}x{o} RoI features differ: {ulps}")
             if o == 7:
-                bbox_head = det.model.roi_head.bbox_head
+                bbox_head = model.roi_head.bbox_head
                 k_cls = bbox_head(k_feat)[0]
                 p_cls = bbox_head(p_feat)[0]
                 rel = ((k_cls - p_cls).abs().max()
@@ -1830,13 +1866,12 @@ def sample_host_shares(np, torch, ann_file, img_prefix, cfg, n=8):
             "intra_op_threads": threads}
 
 
-def files_training_phase(torch, np):
+def files_training_phase(torch, np, tmp):
     """``python -m iif_torch.cli.train_det`` in the process on the
     headline config as it stands (1203 classes, bf16 trunk, b4, six
     canvas buckets, masks at stride 2 bit-packed), its annotation and
     image paths overridden to a seeded synthetic LVIS set of FILES_IMAGES
-    PNGs on disk, ``runner.max_epochs=1`` and ``evaluation.interval=0``:
-    one epoch through the loader with K1's and K2's launches counted from
+    PNGs on disk, and ``runner.max_epochs=1``: one epoch through the loader with K1's and K2's launches counted from
     0 (one a size a step, all on ``vec8``), at least 3 buckets, every
     loss finite, the frozen stage unchanged and trainable parameters
     moved, ``epoch_1.pth`` written; K1 and K2 held against their plain
@@ -1844,9 +1879,9 @@ def files_training_phase(torch, np):
     a resume for FILES_RESUME_STEPS steps under torch.profiler (the
     device's busy share in the steps); the checkpoint served back by
     ``init_detector`` on one of the training images, its RoI features
-    against the plain version; the host time of a sample by part."""
-    import tempfile
-
+    against the plain version; the host time of a sample by part. The
+    set and the work directory go under ``tmp``; the work directory is
+    returned under ``work_dir``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import iif_torch.engine.detection as engine_mod
@@ -1911,130 +1946,128 @@ def files_training_phase(torch, np):
         watch.update({n: params[n].detach().clone() for n in WATCH})
         return trainer
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        data = write_synthetic_lvis(str(Path(tmp) / "lvis"), files_sizes(),
-                                    NUM_CLASSES, seed=0)
-        log(f"synthetic LVIS set of {FILES_IMAGES} PNGs s "
-            f"{time.time() - t0:.3f}")
-        options = [f"data.train.ann_file={data['ann_file']}",
-                   f"data.train.img_prefix={data['img_prefix']}",
-                   "evaluation.interval=0"]
-        work = str(Path(tmp) / "work")
-        argv = [config, "--work-dir", work]
+    t0 = time.time()
+    data = write_synthetic_lvis(str(tmp / "lvis"), files_sizes(),
+                                NUM_CLASSES, seed=0)
+    log(f"synthetic LVIS set of {FILES_IMAGES} PNGs s "
+        f"{time.time() - t0:.3f}")
+    options = [f"data.train.ann_file={data['ann_file']}",
+               f"data.train.img_prefix={data['img_prefix']}"]
+    work = str(tmp / "work")
+    argv = [config, "--work-dir", work]
 
-        # one epoch: K1 and K2 counted from 0 over all its steps
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
+    # one epoch: K1 and K2 counted from 0 over all its steps
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched((engine_mod.DetectionTrainer, "train_step", timed_step),
+                 (DetectionLoader, "__iter__", timed_iter),
+                 (SingleRoIExtractor, "__call__", capture),
+                 (engine_mod, "trainer_from_config", watched)):
+        trainer, state = train_det.main(
+            argv + ["--cfg-options", *options, "runner.max_epochs=1"])
+    run_s = time.perf_counter() - t0
+    launches = {"K1": dict(roi_align_ml.launches_by_size),
+                "K2": dict(grad_launches_by_size)}
+    by_path = {"K1": dict(roi_align_ml.launches_by_path),
+               "K2": dict(grad_launches_by_path)}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = len(steps)
+    log("files path launches", json.dumps(launches), "by kernel path",
+        json.dumps(by_path))
+    check(n == FILES_IMAGES // TRAIN_BATCH == state.step,
+          f"one epoch of {FILES_IMAGES // TRAIN_BATCH} steps: {n}")
+    for k in ("K1", "K2"):
+        check(launches[k] == {7: n, 14: n},
+              f"{k} once a size a step on the files path")
+        check_vec8(f"{k} on the files path", by_path[k], 2 * n)
+    canvases = sorted({h for h, _ in steps})
+    check(len(canvases) >= 3, f"at least 3 canvas buckets: {canvases}")
+    losses = [{k: v.item() for k, v in m.items()} for m in metrics]
+    for i, row in enumerate(losses):
+        for k, v in row.items():
+            check(math.isfinite(v), f"finite {k} at step {i}")
+    params = dict(trainer.model.named_parameters())
+    moved = {k: (params[k].detach() - v).abs().max().item()
+             for k, v in watch.items()}
+    log("files parameter change", json.dumps(moved))
+    check(moved["backbone.layer1.0.conv1.weight"] == 0.0,
+          "frozen stage-1 weight unchanged")
+    check(all(v > 0 for k, v in moved.items() if "layer1" not in k),
+          "trainable parameters moved")
+    ckpt = str(Path(work) / "checkpoints" / "epoch_1.pth")
+    check(read_meta(ckpt)["iter"] == n, "epoch_1.pth after the epoch")
+
+    # the same trainer on the epoch's first batches built beforehand:
+    # steps with the loader idle, against the epoch's
+    cfg = Config.fromfile(config)
+    cfg.merge_from_options(parse_cfg_options(
+        options + [f"data.test.ann_file={data['ann_file']}"]))
+    loader = DetectionLoader(
+        build_dataset({k: v for k, v in cfg.data["train"].items()
+                       if k != "oversample_thr"}),
+        train_det.build_pipeline(cfg),
+        batch_size=cfg.data["samples_per_gpu"], seed=cfg.seed)
+    batches = []
+    for batch in loader:
+        batches.append({k: v for k, v in batch.items()
+                        if k in engine_mod.FEED_KEYS})
+        if len(batches) == FILES_PREBUILT:
+            break
+    prebuilt = []
+    for batch in batches:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with patched((engine_mod.DetectionTrainer, "train_step", timed_step),
-                     (DetectionLoader, "__iter__", timed_iter),
-                     (SingleRoIExtractor, "__call__", capture),
-                     (engine_mod, "trainer_from_config", watched)):
-            trainer, state = train_det.main(
-                argv + ["--cfg-options", *options, "runner.max_epochs=1"])
-        run_s = time.perf_counter() - t0
-        launches = {"K1": dict(roi_align_ml.launches_by_size),
-                    "K2": dict(grad_launches_by_size)}
-        by_path = {"K1": dict(roi_align_ml.launches_by_path),
-                   "K2": dict(grad_launches_by_path)}
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        n = len(steps)
-        log("files path launches", json.dumps(launches), "by kernel path",
-            json.dumps(by_path))
-        check(n == FILES_IMAGES // TRAIN_BATCH == state.step,
-              f"one epoch of {FILES_IMAGES // TRAIN_BATCH} steps: {n}")
-        for k in ("K1", "K2"):
-            check(launches[k] == {7: n, 14: n},
-                  f"{k} once a size a step on the files path")
-            check_vec8(f"{k} on the files path", by_path[k], 2 * n)
-        canvases = sorted({h for h, _ in steps})
-        check(len(canvases) >= 3, f"at least 3 canvas buckets: {canvases}")
-        losses = [{k: v.item() for k, v in m.items()} for m in metrics]
-        for i, row in enumerate(losses):
-            for k, v in row.items():
-                check(math.isfinite(v), f"finite {k} at step {i}")
-        params = dict(trainer.model.named_parameters())
-        moved = {k: (params[k].detach() - v).abs().max().item()
-                 for k, v in watch.items()}
-        log("files parameter change", json.dumps(moved))
-        check(moved["backbone.layer1.0.conv1.weight"] == 0.0,
-              "frozen stage-1 weight unchanged")
-        check(all(v > 0 for k, v in moved.items() if "layer1" not in k),
-              "trainable parameters moved")
-        ckpt = str(Path(work) / "checkpoints" / "epoch_1.pth")
-        check(read_meta(ckpt)["iter"] == n, "epoch_1.pth after the epoch")
+        state, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        prebuilt.append((int(batch["image"].shape[1]),
+                         (time.perf_counter() - t0) * 1e3))
+    del batches
 
-        # the same trainer on the epoch's first batches built beforehand:
-        # steps with the loader idle, against the epoch's
-        cfg = Config.fromfile(config)
-        cfg.merge_from_options(parse_cfg_options(
-            options + [f"data.test.ann_file={data['ann_file']}"]))
-        loader = DetectionLoader(
-            build_dataset({k: v for k, v in cfg.data["train"].items()
-                           if k != "oversample_thr"}),
-            train_det.build_pipeline(cfg),
-            batch_size=cfg.data["samples_per_gpu"], seed=cfg.seed)
-        batches = []
-        for batch in loader:
-            batches.append({k: v for k, v in batch.items()
-                            if k in engine_mod.FEED_KEYS})
-            if len(batches) == FILES_PREBUILT:
-                break
-        prebuilt = []
-        for batch in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, _ = trainer.train_step(state, batch)
-            torch.cuda.synchronize()
-            prebuilt.append((int(batch["image"].shape[1]),
-                             (time.perf_counter() - t0) * 1e3))
-        del batches
+    # K1 and K2 on one step's features and RoIs, a bucket below 800
+    check(7 in captured and 14 in captured,
+          f"a step on a bucket other than {CANVAS[0]}")
+    k1, k2 = {}, {}
+    rng = np.random.RandomState(5)
+    for o in (7, 14):
+        feats32, rois = captured[o]
+        g32 = torch.tensor(rng.randn(rois.shape[0], o, o, 256),
+                           dtype=torch.float32, device=rois.device)
+        for dt in (torch.float32, torch.bfloat16):
+            row = k1_row(torch, feats32, rois, o, dt)
+            k1[(o, row["dtype"])] = row
+            row = k2_row(torch, feats32, rois, g32, o, dt)
+            k2[(o, row["dtype"])] = row
+    bucket = captured.pop("h")
+    levels = [list(f.shape[1:3]) for f in captured[7][0]]
+    captured.clear()
 
-        # K1 and K2 on one step's features and RoIs, a bucket below 800
-        check(7 in captured and 14 in captured,
-              f"a step on a bucket other than {CANVAS[0]}")
-        k1, k2 = {}, {}
-        rng = np.random.RandomState(5)
-        for o in (7, 14):
-            feats32, rois = captured[o]
-            g32 = torch.tensor(rng.randn(rois.shape[0], o, o, 256),
-                               dtype=torch.float32, device=rois.device)
-            for dt in (torch.float32, torch.bfloat16):
-                row = k1_row(torch, feats32, rois, o, dt)
-                k1[(o, row["dtype"])] = row
-                row = k2_row(torch, feats32, rois, g32, o, dt)
-                k2[(o, row["dtype"])] = row
-        bucket = captured.pop("h")
-        levels = [list(f.shape[1:3]) for f in captured[7][0]]
-        captured.clear()
+    # resume for FILES_RESUME_STEPS steps, profiled
+    first = len(steps)
+    with patched((engine_mod.DetectionTrainer, "train_step", timed_step),
+                 (DetectionLoader, "__iter__", timed_iter)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, resumed = train_det.main(argv + [
+                "--resume-from", ckpt, "--max-steps",
+                str(FILES_RESUME_STEPS), "--cfg-options", *options,
+                "runner.max_epochs=2"])
+    check(resumed.step == n + FILES_RESUME_STEPS,
+          f"resumed at step {n}, {FILES_RESUME_STEPS} more")
+    spans, span_ms, busy_ms = busy_in_spans(prof, "files_step")
+    check(spans == FILES_RESUME_STEPS, "profiled resume steps")
 
-        # resume for FILES_RESUME_STEPS steps, profiled
-        first = len(steps)
-        with patched((engine_mod.DetectionTrainer, "train_step", timed_step),
-                     (DetectionLoader, "__iter__", timed_iter)):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                _, resumed = train_det.main(argv + [
-                    "--resume-from", ckpt, "--max-steps",
-                    str(FILES_RESUME_STEPS), "--cfg-options", *options,
-                    "runner.max_epochs=2"])
-        check(resumed.step == n + FILES_RESUME_STEPS,
-              f"resumed at step {n}, {FILES_RESUME_STEPS} more")
-        spans, span_ms, busy_ms = busy_in_spans(prof, "files_step")
-        check(spans == FILES_RESUME_STEPS, "profiled resume steps")
-
-        # the checkpoint served back on a training image (PNG, no cv2)
-        det = init_detector(cfg, ckpt, device="cuda")
-        image = str(Path(data["img_prefix"]) / "train2017" /
-                    "000000000001.png")
-        served = inference_detector(det, image, masks=False)
-        check(served["boxes"].shape == (300, 4) and served["valid"].any(),
-              "300 detections, some valid")
-        compare = request_vs_plain(torch, det, image)
-        log("served checkpoint vs plain RoIAlign", json.dumps(compare))
-        shares = sample_host_shares(np, torch, data["ann_file"],
-                                    data["img_prefix"], cfg)
+    # the checkpoint served back on a training image (PNG, no cv2)
+    det = init_detector(cfg, ckpt, device="cuda")
+    image = str(Path(data["img_prefix"]) / "train2017" /
+                "000000000001.png")
+    served = inference_detector(det, image, masks=False)
+    check(served["boxes"].shape == (300, 4) and served["valid"].any(),
+          "300 detections, some valid")
+    compare = request_vs_plain(torch, det, image)
+    log("served checkpoint vs plain RoIAlign", json.dumps(compare))
+    shares = sample_host_shares(np, torch, data["ann_file"],
+                                data["img_prefix"], cfg)
 
     epoch = steps[:first]
     by_bucket = {}
@@ -2069,7 +2102,308 @@ def files_training_phase(torch, np):
                     per_step_busy / statistics.median(
                         [t for _, t in prebuilt])},
             "kernel_bucket": f"{bucket}x{CANVAS[1]}", "kernel_levels": levels,
-            "served": compare, "host_sample": shares, "k1": k1, "k2": k2}
+            "served": compare, "host_sample": shares, "k1": k1, "k2": k2,
+            "work_dir": work}
+
+
+EVAL_IMAGES = 32                   # images of the seeded LVIS val set
+AP_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "APr", "APc", "APf")
+
+
+def same_ap(a, b):
+    """Two AP dicts equal bit for bit, NaN equal to NaN."""
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
+
+
+def eval_sizes():
+    """COCO sizes, landscape and portrait in turn."""
+    from iif_torch.tools.synthetic_lvis import COCO_SIZES
+
+    return [COCO_SIZES[i % len(COCO_SIZES)] for i in range(EVAL_IMAGES)]
+
+
+def gt_as_detections(dataset):
+    """Every non-crowd gt of ``dataset`` as a detection: its box, score 1,
+    its mask as compressed RLE and that mask's area."""
+    from iif_torch.detection.mask_utils import (
+        mask_area,
+        rle_encode,
+        segm_to_bitmap,
+    )
+
+    dets = []
+    for rec in dataset.img_infos:
+        for a in rec["anns"]:
+            if a.get("iscrowd", 0):
+                continue
+            segm = a["segmentation"]
+            if not (isinstance(segm, dict) and isinstance(segm["counts"],
+                                                          str)):
+                segm = rle_encode(segm_to_bitmap(segm, rec["height"],
+                                                 rec["width"]))
+            dets.append({"image_id": rec["id"],
+                         "category_id": a["category_id"],
+                         "bbox": list(a["bbox"]), "score": 1.0,
+                         "segmentation": segm, "area": mask_area(segm)})
+    return dets
+
+
+def evaluation_phase(torch, np, work, tmp):
+    """``python -m iif_torch.cli.test_det`` in the process on the headline
+    config as it stands (1203 classes, bf16 trunk, ``score_thr=1e-4``,
+    300 detections, masks, b4) with the files phase's checkpoint (its
+    work directory: ``latest.pth``) on a seeded LVIS v1-style val set of
+    EVAL_IMAGES PNGs with negative and not-exhaustive category ids
+    (``data.test.*``), ``--eval bbox segm --out``. Each batch's host time
+    split into the loader (decode, canvas on the card), the device
+    forward drained, the masks' paste and read-back, the RLE encode and
+    the results conversion; the evaluator's seconds by metric; K1's
+    launches from 0 (2 a batch, all on ``vec8``; K2-K4 none); the first
+    batch's RoI features and class scores against the plain RoIAlign;
+    the rescaled boxes against NumPy's true division; the val set's own
+    gt as detections scoring AP 1; the evaluator's AP dicts through the
+    C++ matcher and IoU equal to the plain Python ones; ``results.json``
+    read back equal to the records."""
+    from iif_torch.cli import test_det
+    from iif_torch.config import Config, parse_cfg_options
+    from iif_torch.detection import simple_test
+    from iif_torch.detection.datasets import build_dataset
+    from iif_torch.detection.evaluation import DetEvaluator
+    from iif_torch.detection.roi_extractor import SingleRoIExtractor
+    from iif_torch.ops import roi_align as single_mod
+    from iif_torch.ops.roi_align_ml import (
+        grad_launches_by_size,
+        reset_launches,
+        roi_align_ml,
+    )
+    from iif_torch.tools.eval_timing import batch_split, summarize
+    from iif_torch.tools.synthetic_lvis import write_synthetic_lvis
+
+    config = str(REPO / "configs/iif/iif_r50_1x.py")
+    t0 = time.time()
+    data = write_synthetic_lvis(str(tmp / "val"), eval_sizes(), NUM_CLASSES,
+                                seed=1, neg_ids=True)
+    log(f"synthetic LVIS val set of {EVAL_IMAGES} PNGs s "
+        f"{time.time() - t0:.3f}")
+    options = [f"data.test.ann_file={data['ann_file']}",
+               f"data.test.img_prefix={data['img_prefix']}"]
+    out_json = tmp / "results.json"
+    seen, model, rescaled, runs, evals = [], [], [], [], []
+
+    def make(m, loss_cls, test_cfg, _make=simple_test.make_simple_test):
+        model.append(m)
+        return _make(m, loss_cls, test_cfg)
+
+    def record(self, feats, rois, _extract=SingleRoIExtractor.__call__):
+        out = _extract(self, feats, rois)
+        if len(seen) < 2:
+            seen.append((self.output_size[0], feats, rois, out))
+        return out
+
+    def rescale(boxes, sf, _rescale=test_det.rescale_boxes):
+        out = _rescale(boxes, sf)
+        rescaled.append((boxes.cpu().numpy(), np.asarray(sf),
+                         out.cpu().numpy()))
+        return out
+
+    def run(*args, _run=test_det.run_inference, **kw):
+        runs.append(_run(*args, **kw))
+        return runs[-1]
+
+    def evaluate(self, dets, iou_type="bbox", _ev=DetEvaluator.evaluate):
+        t0 = time.perf_counter()
+        res = _ev(self, dets, iou_type)
+        evals.append((iou_type, self.native, time.perf_counter() - t0))
+        return res
+
+    reset_launches()
+    single_mod.reset_launches()
+    t0 = time.perf_counter()
+    with patched((simple_test, "make_simple_test", make),
+                 (SingleRoIExtractor, "__call__", record),
+                 (test_det, "rescale_boxes", rescale),
+                 (test_det, "run_inference", run),
+                 (DetEvaluator, "evaluate", evaluate)), \
+            batch_split() as (split, marks):
+        metrics = test_det.main([config, str(work), "--eval", "bbox", "segm",
+                                 "--out", str(out_json), "--cfg-options",
+                                 *options])
+    run_s = time.perf_counter() - t0
+    n = len(marks) - 1
+    launches = {"K1": dict(roi_align_ml.launches_by_size),
+                "K2": dict(grad_launches_by_size),
+                "K3": dict(single_mod.roi_align.launches_by_size),
+                "K4": dict(single_mod.grad_launches_by_size)}
+    by_path = dict(roi_align_ml.launches_by_path)
+    log("evaluation path launches", json.dumps(
+        {k: {str(s): c for s, c in v.items()} for k, v in launches.items()}),
+        "by kernel path", json.dumps(by_path))
+    check(n == EVAL_IMAGES // TRAIN_BATCH, f"{n} batches of 4")
+    check(launches["K1"] == {7: n, 14: n}, "K1 twice a batch")
+    check_vec8("K1 on the evaluation path", by_path, 2 * n)
+    check(not (launches["K2"] or launches["K3"] or launches["K4"]),
+          "no K2, K3 or K4 on the evaluation path")
+
+    # the first batch's RoI features and class scores against the plain
+    # RoIAlign
+    compare = features_vs_plain(torch, model[0], seen)
+    log("evaluation batch vs plain RoIAlign", json.dumps(compare))
+    captured = ([f.float() for f in seen[0][1][:4]], seen[0][2].clone(),
+                seen[1][2].clone())
+    seen.clear()
+
+    # repair: boxes back to the image frame by a true float32 division;
+    # the division by a Python float it replaced, on the same boxes
+    by_float, coords = 0, 0
+    for boxes, sf, got in rescaled:
+        check(got.dtype == np.float32 and np.array_equal(got, boxes / sf),
+              "rescaled boxes equal NumPy's true division")
+        for b in range(boxes.shape[0]):
+            old = (torch.from_numpy(boxes[b]).cuda()
+                   / float(sf.reshape(-1)[b])).cpu().numpy()
+            by_float += int((old != got[b]).sum())
+            coords += old.size
+    log("boxes divided by a Python float on the card differ from NumPy's "
+        f"true division in {by_float} of {coords} coordinates")
+    records = runs[0]
+    first = records[0]
+    b0 = rescaled[0][2][0]
+    x1, y1, w, h = first["bbox"]
+    check(any(list(row) == [x1, y1, x1 + w, y1 + h] for row in
+              b0.astype(np.float64)), "records carry the rescaled boxes")
+    check(json.loads(out_json.read_text()) == records,
+          "results.json loads back as the records")
+
+    # the val set's gt as detections: AP 1; the C++ and the plain
+    # evaluator equal on this phase's results
+    cfg = Config.fromfile(config)
+    cfg.merge_from_options(parse_cfg_options(options))
+    ds = build_dataset({k: v for k, v in cfg.data["test"].items()})
+    perfect = {}
+    for iou_type in ("bbox", "segm"):
+        res = test_det.build_evaluator(ds, cfg).evaluate(
+            gt_as_detections(ds), iou_type)
+        perfect[iou_type] = res
+    members = {ds.cat_frequency[a["category_id"]] for rec in ds.img_infos
+               for a in rec["anns"] if not a.get("iscrowd", 0)}
+    log("gt as detections", json.dumps(perfect), "buckets with members",
+        sorted(members))
+    for iou_type, res in perfect.items():
+        check(res["AP"] == 1.0, f"gt as detections: {iou_type} AP 1")
+        for b in "rcf":
+            check(res[f"AP{b}"] == 1.0 if b in members
+                  else math.isnan(res[f"AP{b}"]),
+                  f"gt as detections: {iou_type} AP{b}")
+    t0 = time.perf_counter()
+    plain = {m: test_det.build_evaluator(ds, cfg, native=False).evaluate(
+        records, m) for m in ("bbox", "segm")}
+    plain_s = time.perf_counter() - t0
+    for m in ("bbox", "segm"):
+        check(same_ap(metrics[m], plain[m]),
+              f"{m} AP through C++ and plain Python equal")
+
+    later = [(b - a) / TRAIN_BATCH for a, b in zip(marks[1:], marks[2:])]
+    return {**summarize(split, marks, TRAIN_BATCH), "images": EVAL_IMAGES,
+            "run_s": run_s, "s_per_image_after_first": spread(later),
+            "evaluator_s": {f"{t}{'' if nat else '_plain'}": s
+                            for t, nat, s in evals},
+            "plain_evaluator_s": plain_s,
+            "detections_per_image": len(records) / EVAL_IMAGES,
+            "box_coords_off_by_float_division": [by_float, coords],
+            "ap": {m: metrics[m] for m in ("bbox", "segm")},
+            "launches": launches["K1"], "vs_plain": compare,
+            "captured": captured}
+
+
+OVERFIT_AP = 0.5                   # bbox and segm AP the overfit must reach
+
+
+def overfit_phase(torch, np, tmp):
+    """``iif_torch.tools.overfit``'s run in the process: the 8 seeded
+    bright-squares PNGs and its MaskRCNN R50-FPN config (2 classes, no
+    frozen stage, IIF ``raw``, 96x128 canvas, b4, SGD lr 0.01, EPOCHS
+    epochs with the evaluation hook after the last), ``train_det`` then
+    ``test_det`` (bbox, segm): both APs at least OVERFIT_AP, the hook's
+    AP dicts equal to ``test_det``'s (same weights, same data), K1's and
+    K2's launches from 0 over the training and the hook (all on
+    ``vec8``), ms/step."""
+    from iif_torch.cli import test_det, train_det
+    import iif_torch.engine.detection as engine_mod
+    from iif_torch.detection.roi_extractor import SingleRoIExtractor
+    from iif_torch.ops.roi_align_ml import (
+        grad_launches_by_path,
+        grad_launches_by_size,
+        reset_launches,
+        roi_align_ml,
+    )
+    from iif_torch.tools.overfit import EPOCHS, write_config
+    from iif_torch.tools.synthetic_lvis import write_synthetic_squares
+
+    root = tmp / "squares"
+    data = write_synthetic_squares(str(root))
+    cfg = write_config(str(root), data, EPOCHS)
+    work = str(root / "work")
+    steps, hooks, captured = [], [], {}
+
+    def timed_step(self, state, batch, _step=engine_mod.DetectionTrainer
+                   .train_step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _step(self, state, batch)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def hook(*args, _run=train_det._run_eval, **kw):
+        hooks.append(_run(*args, **kw))
+        return hooks[-1]
+
+    def capture(self, feats, rois, _extract=SingleRoIExtractor.__call__):
+        out = _extract(self, feats, rois)
+        o = self.output_size[0]
+        if torch.is_grad_enabled() and o not in captured:
+            captured[o] = ([f.detach().float() for f in feats[:4]],
+                           rois.detach().clone())
+        return out
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with patched((engine_mod.DetectionTrainer, "train_step", timed_step),
+                 (train_det, "_run_eval", hook),
+                 (SingleRoIExtractor, "__call__", capture)):
+        _, state = train_det.main([cfg, "--work-dir", work])
+    train_s = time.perf_counter() - t0
+    launches = {"K1": dict(roi_align_ml.launches_by_size),
+                "K2": dict(grad_launches_by_size)}
+    by_path = {"K1": dict(roi_align_ml.launches_by_path),
+               "K2": dict(grad_launches_by_path)}
+    t0 = time.perf_counter()
+    metrics = test_det.main([cfg, work, "--eval", "bbox", "segm"])
+    test_s = time.perf_counter() - t0
+    log("overfit path launches", json.dumps(launches), "by kernel path",
+        json.dumps(by_path))
+    n = len(steps)
+    check(n == state.step == EPOCHS * 2, f"{EPOCHS} epochs of 2 steps: {n}")
+    check(len(hooks) == 1, "the evaluation hook ran once")
+    for m in ("bbox", "segm"):
+        check(same_ap(hooks[0][m], metrics[m]),
+              f"hook's {m} AP equal to test_det's")
+        check(metrics[m]["AP"] >= OVERFIT_AP,
+              f"overfit {m} AP {metrics[m]['AP']} >= {OVERFIT_AP}")
+    # training: one K1 and one K2 launch a size a step; the hook's two
+    # batches: one K1 launch a size each
+    check(launches["K2"] == {7: n, 14: n}, "K2 once a size a step")
+    check(launches["K1"] == {7: n + 2, 14: n + 2},
+          "K1 once a size a step and a hook batch")
+    check_vec8("K1 on the overfit path", by_path["K1"], 2 * (n + 2))
+    check_vec8("K2 on the overfit path", by_path["K2"], 2 * n)
+    return {"epochs": EPOCHS, "steps": n, "step_ms": spread(steps),
+            "step_ms_after_first": spread(steps[1:]),
+            "train_s": train_s, "test_s": test_s,
+            "ap": {m: metrics[m] for m in ("bbox", "segm")},
+            "hook_ap": hooks[0], "launches": launches,
+            "captured": captured}
 
 
 def main() -> int:
@@ -2098,9 +2432,17 @@ def main() -> int:
     log("card", card)
     log("python", sys.version.split()[0], "torch", torch.__version__,
         "cuda", torch.version.cuda, "ninja", shutil.which("ninja"))
+    from concurrent.futures import ThreadPoolExecutor
+
+    from iif_torch.native import build as native_build
+
     t0 = time.time()
-    reports = build.build_all()
-    log(f"kernel build s {time.time() - t0:.3f}")
+    with ThreadPoolExecutor(2) as pool:
+        natives = [pool.submit(native_build.build, name)
+                   for name in ("rle", "evalmatch")]
+        reports = build.build_all()
+        natives = [f.result().name for f in natives]
+    log(f"kernel build s {time.time() - t0:.3f}", "host libraries", natives)
     ptxas = ptxas_report(reports)
     for fn in ptxas:
         log("ptxas", json.dumps(fn))
@@ -2130,9 +2472,36 @@ def main() -> int:
     log("training", json.dumps(train), "card", card)
     c4_train = c4_training_phase(torch, np)
     log("C4 training", json.dumps(c4_train), "card", card)
-    files = files_training_phase(torch, np)
-    files_k1, files_k2 = files.pop("k1"), files.pop("k2")
-    log("training from files", json.dumps(files), "card", card)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = files_training_phase(torch, np, Path(tmp))
+        files_k1, files_k2 = files.pop("k1"), files.pop("k2")
+        log("training from files", json.dumps(
+            {k: v for k, v in files.items() if k != "work_dir"}),
+            "card", card)
+        evaluation = evaluation_phase(torch, np, files.pop("work_dir"),
+                                      Path(tmp))
+        eval_feats, eval_rois7, eval_rois14 = evaluation.pop("captured")
+        log("evaluation", json.dumps(evaluation), "card", card)
+        overfit = overfit_phase(torch, np, Path(tmp))
+        overfit_captured = overfit.pop("captured")
+        log("overfit", json.dumps(overfit), "card", card)
+    eval_k1 = {}
+    for o, rois in ((7, eval_rois7), (14, eval_rois14)):
+        for dt in (torch.float32, torch.bfloat16):
+            row = k1_row(torch, eval_feats, rois, o, dt)
+            eval_k1[(o, row["dtype"])] = row
+    del eval_feats
+    overfit_k1, overfit_k2 = {}, {}
+    rng = np.random.RandomState(6)
+    for o in (7, 14):
+        feats32, rois = overfit_captured[o]
+        g32 = torch.tensor(rng.randn(rois.shape[0], o, o, 256),
+                           dtype=torch.float32, device=rois.device)
+        for dt in (torch.float32, torch.bfloat16):
+            row = k1_row(torch, feats32, rois, o, dt)
+            overfit_k1[(o, row["dtype"])] = row
+            row = k2_row(torch, feats32, rois, g32, o, dt)
+            overfit_k2[(o, row["dtype"])] = row
 
     # one entry per kernel, output size and path shape: K1 at the serving
     # shapes with the serving paths' launches, K1 and K2 at the training
@@ -2243,36 +2612,54 @@ def main() -> int:
         kernels[-1]["f32_kernel_ms"] = rows["float32"]["kernel_ms"]
         if key == "K4":
             kernels[-1]["pair"] = rows["pair"]
-    # K1 and K2 on the files path: one step's own features and RoIs on a
-    # bucket below 800, with that path's launches
-    for key, rows in (("K1", files_k1), ("K2", files_k2)):
-        for o in (7, 14):
-            row = rows[(o, "bfloat16")]
-            kernels.append({
-                "name": ("roi_align_ml" if key == "K1" else
-                         "roi_align_ml_grad") + f"_{o}x{o}_files",
-                "route": "cuda", "source": SOURCE, "replaces": REPLACES[key],
-                "launches": files["launches"][key].get(o, 0),
-                "launches_by_path": {
-                    "train_from_files": files["launches"][key].get(o, 0)},
-                "max_abs_err": row["max_abs_err"],
-                "tolerance": row["tolerance"],
-                "f32_max_abs_err": rows[(o, "float32")]["max_abs_err"],
-                "ms": row["ms"], "plain_ms": row["plain_ms"],
-                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": None, "kernel_ms": row["kernel_ms"],
-                "path": row["path"], "bound_share": row["bound_share"],
-                "kernel_bound_share": row["kernel_bound_share"],
-                "shape": f"R={row['R']} bf16 B={row['B']} C=256 on the "
-                         f"{files['kernel_bucket']} bucket's levels "
-                         f"{files['kernel_levels']}, a training step's own "
-                         "features and RoIs"})
+    # K1 and K2 on the files path (one step's own features and RoIs on a
+    # bucket below 800), K1 on the evaluation path (the first batch's) and
+    # K1 and K2 on the overfit path (its first step's), each with that
+    # path's launches
+    paths = [
+        ("files", "train_from_files", files["launches"],
+         {"K1": files_k1, "K2": files_k2},
+         f"on the {files['kernel_bucket']} bucket's levels "
+         f"{files['kernel_levels']}, a training step's own features and "
+         "RoIs"),
+        ("eval", "evaluation", {"K1": evaluation["launches"]},
+         {"K1": eval_k1}, "on the 800x1344 canvas's levels, the first "
+         "evaluation batch's own features and RoIs"),
+        ("overfit", "overfit", overfit["launches"],
+         {"K1": overfit_k1, "K2": overfit_k2}, "on the 96x128 canvas's "
+         "levels, the first overfit step's own features and RoIs")]
+    for suffix, path_name, path_launches, by_key, where in paths:
+        for key, rows in by_key.items():
+            for o in (7, 14):
+                kernels.append(path_row(
+                    rows, o, key, suffix,
+                    {path_name: path_launches[key].get(o, 0)}, where))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def path_row(rows, o, key, suffix, launches_by_path, where):
+    """The ``kernels`` entry of K1 or K2 (``key``) at ``o`` on one path:
+    its bf16 row of ``rows``, the f32 row's error, the path's launches."""
+    row = rows[(o, "bfloat16")]
+    return {"name": ("roi_align_ml" if key == "K1" else
+                     "roi_align_ml_grad") + f"_{o}x{o}_{suffix}",
+            "route": "cuda", "source": SOURCE, "replaces": REPLACES[key],
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path,
+            "max_abs_err": row["max_abs_err"],
+            "tolerance": row["tolerance"],
+            "f32_max_abs_err": rows[(o, "float32")]["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "kernel_ms": row["kernel_ms"],
+            "path": row["path"], "bound_share": row["bound_share"],
+            "kernel_bound_share": row["kernel_bound_share"],
+            "shape": f"R={row['R']} bf16 B={row['B']} C=256 {where}"}
 
 
 if __name__ == "__main__":

@@ -17,25 +17,34 @@ classification loss and ``trainer_from_config``'s trainer; overlays
 momentum, scheduler, step, epoch), then ``--load-from`` (weights); runs
 the epochs (``--max-steps`` caps each) and writes a checkpoint at
 ``checkpoint_config.interval`` and after the last epoch
-(``iif_torch/utils/checkpoint.py``).
+(``iif_torch/utils/checkpoint.py``); after each epoch that
+``evaluation.interval`` divides, it evaluates the model on ``data.val``
+as ``cli/test_det.py`` does and prints ``eval <metric> {...}`` for each
+of ``evaluation.metric`` (the JAX CLI's ``_run_eval``).
 
 What it cannot run it refuses with ``NotImplementedError`` before
 training: FASA's dynamic runner, EMA and other custom hooks (the YOLOX
 mode switch among them), ``--tp``, ``--selectp``, ``pipeline.uint8=
-False``, ``pipeline.pack_masks=False``, and an ``evaluation.interval``
-the run would reach; the loss,
-the detector, the pipeline and the trainer refuse their own unported
-knobs (Seesaw, other families, extras, ...).
+False``, ``pipeline.pack_masks=False``, and an evaluation the run would
+reach with the metric ``PQ``; the loss, the
+detector, the pipeline and the trainer refuse their own unported knobs
+(Seesaw, other families, extras, ...).
 """
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+from iif_torch.cli import test_det
 from iif_torch.config import Config, parse_cfg_options
 from iif_torch.detection.datasets import build_dataset
-from iif_torch.detection.inference import build_loss_cls
+from iif_torch.detection.detector import DetTestCfg
+from iif_torch.detection.inference import (
+    Detector,
+    build_loss_cls,
+    eval_pipeline,
+)
 from iif_torch.detection.pipeline import DetectionLoader, DetectionPipeline
 from iif_torch.detection.pretrained import load_pretrained_backbone
 from iif_torch.device import resolve_device
@@ -74,6 +83,7 @@ def refuse_unported(cfg: Config, args: argparse.Namespace,
     hooks = [h.get("type") for h in cfg.get("custom_hooks", []) or []]
     interval = cfg.get("evaluation", {}).get("interval", 0)
     epochs = range(start_epoch, cfg.runner["max_epochs"])
+    metrics = cfg.get("evaluation", {}).get("metric", ["bbox"])
     unported = {
         "--tp (tensor parallelism)":
             (args.tp or cfg.get("parallel", {}).get("tp", 1)) > 1,
@@ -86,7 +96,8 @@ def refuse_unported(cfg: Config, args: argparse.Namespace,
                                                                 True),
         "pipeline pack_masks=False": not cfg.get("pipeline", {}).get(
             "pack_masks", True),
-        f"evaluation every {interval} epochs (evaluation)": bool(interval)
+        "evaluation metric PQ (panoptic evaluation)": "PQ" in metrics
+            and bool(interval)
             and any((e + 1) % interval == 0 for e in epochs),
     }
     for knob, bad in unported.items():
@@ -112,6 +123,26 @@ def build_pipeline(cfg: Config) -> DetectionPipeline:
         max_proposals=pcfg.get(
             "max_proposals",
             512 if not cfg.model.get("with_rpn", True) else 0))
+
+
+def _run_eval(cfg: Config, trainer: engine.DetectionTrainer,
+              metrics: List[str]) -> Dict[str, Dict[str, Any]]:
+    """The evaluation hook (``iif_tpu/cli/train_det.py::_run_eval``, the
+    reference's ``EvalHook``): the trainer's model in eval mode over
+    ``data.val`` through ``test_det.run_inference``, each metric printed
+    as ``eval <metric> {...}`` (``test_det.evaluate_metrics``); the
+    results by metric."""
+    val_ds = build_dataset({k: v for k, v in cfg.data["val"].items()
+                            if k != "oversample_thr"})
+    detector = Detector(trainer.model.eval(), trainer.loss_cls,
+                        DetTestCfg(**cfg.get("test_cfg", {})),
+                        eval_pipeline(cfg), val_ds.CLASSES, trainer.device)
+    loader = test_det._EvalLoader(val_ds, detector,
+                                  cfg.data.get("samples_per_gpu", 4))
+    results = test_det.run_inference(detector, loader, val_ds.cat_ids,
+                                     cfg.model.get("with_mask", True))
+    return test_det.evaluate_metrics(val_ds, cfg, results, metrics,
+                                     prefix=("eval",))
 
 
 class _Capped:
@@ -187,6 +218,8 @@ def main(argv: Optional[List[str]] = None
                                 seed=cfg.get("seed"))
     max_epochs = cfg.runner["max_epochs"]
     interval = cfg.get("checkpoint_config", {}).get("interval", 1)
+    eval_cfg = cfg.get("evaluation", {})
+    eval_interval = eval_cfg.get("interval", 0)
     print(f"Start training: {max_epochs} epochs, {len(loader)} "
           f"steps/epoch on {device}")
     try:
@@ -199,6 +232,8 @@ def main(argv: Optional[List[str]] = None
             if (epoch + 1) % interval == 0 or epoch == max_epochs - 1:
                 save_checkpoint(work_dir, epoch + 1, trainer.model, state,
                                 cfg.pretty_text())
+            if eval_interval and (epoch + 1) % eval_interval == 0:
+                _run_eval(cfg, trainer, eval_cfg.get("metric", ["bbox"]))
     finally:
         log_writer.close()
     print("done")

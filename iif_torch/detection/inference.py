@@ -86,11 +86,24 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> None:
                            for k, v in ckpt.items()})
 
 
+def eval_pipeline(cfg: Config) -> DetectionPipeline:
+    """The eval branch's pipeline of a config: its canvas, its first
+    scale, keep-ratio."""
+    pcfg = cfg.get("pipeline", {})
+    return DetectionPipeline(
+        canvas=tuple(pcfg.get("canvas", (800, 1344))),
+        scales=[tuple(s) for s in pcfg.get("scales", [(1333, 800)])],
+        keep_ratio=pcfg.get("keep_ratio", True))
+
+
 def init_detector(config: Union[str, Config],
                   checkpoint: Optional[str] = None,
-                  device: Union[str, torch.device] = "cuda") -> Detector:
+                  device: Union[str, torch.device] = "cuda",
+                  dataset=None) -> Detector:
     """Build a detector from a config path. Weights come from an mmdet
-    ``.pth`` checkpoint, or are seeded random (seed 0) without one."""
+    ``.pth`` checkpoint, or are seeded random (seed 0) without one. The
+    classes and the classification loss come from ``dataset``, else from
+    the config's test set when its files exist."""
     dev = resolve_device(device)
     cfg = config if not isinstance(config, str) else Config.fromfile(config)
     model = build_detector(dict(cfg.model))
@@ -99,18 +112,14 @@ def init_detector(config: Union[str, Config],
     ds_cfg = {k: v for k, v in cfg.data["test"].items()
               if k != "oversample_thr"}
     try:
-        test_ds = build_dataset(ds_cfg)
+        test_ds = dataset if dataset is not None else build_dataset(ds_cfg)
         classes = test_ds.CLASSES
         loss_cls = build_loss_cls(cfg.loss_cls, test_ds, num_classes)
     except FileNotFoundError:
         classes = [str(i) for i in range(num_classes)]
         loss_cls = DetCrossEntropyLoss(num_classes=num_classes)
 
-    pcfg = cfg.get("pipeline", {})
-    pipeline = DetectionPipeline(
-        canvas=tuple(pcfg.get("canvas", (800, 1344))),
-        scales=[tuple(s) for s in pcfg.get("scales", [(1333, 800)])],
-        keep_ratio=pcfg.get("keep_ratio", True))
+    pipeline = eval_pipeline(cfg)
     if checkpoint:
         load_checkpoint(model, checkpoint)
     else:
@@ -131,13 +140,24 @@ def _preprocess(detector: Detector, image: Union[str, np.ndarray]
     return detector.pipeline(image, detector.device), (h, w)
 
 
+def rescale_boxes(boxes: torch.Tensor, scale_factor) -> torch.Tensor:
+    """Boxes on the canvas back to the original image frame: a true
+    float32 division by the (float32) scale factor, as NumPy divides the
+    JAX package's read-back boxes. The factor goes to the boxes' device as
+    a tensor: PyTorch's CUDA division by a Python or CPU scalar multiplies
+    by its reciprocal, an ulp off."""
+    sf = torch.as_tensor(np.asarray(scale_factor, np.float32),
+                         device=boxes.device)
+    return boxes / sf
+
+
 def _postprocess(detector: Detector, sample: Dict[str, Any],
                  out: Dict[str, torch.Tensor], hw: Tuple[int, int],
                  idx: int = 0, with_masks: bool = True
                  ) -> Dict[str, np.ndarray]:
     """Rescale to the original image frame and paste masks (on the
     device), then read back."""
-    boxes = out["boxes"][idx] / float(sample["scale_factor"])
+    boxes = rescale_boxes(out["boxes"][idx], sample["scale_factor"])
     result = {
         "boxes": boxes.cpu().numpy(),
         "scores": out["scores"][idx].cpu().numpy(),

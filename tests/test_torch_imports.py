@@ -57,10 +57,15 @@ def test_port_package_has_every_module():
                 "detection/inference.py", "cli/serve.py",
                 "ops/assigner.py", "ops/sampler.py", "engine/schedules.py",
                 "engine/detection.py", "ops/roi_align.py", "detection/c4.py",
-                "detection/simple_test.py", "detection/init.py"):
+                "detection/simple_test.py", "detection/init.py",
+                "detection/evaluation.py", "detection/voc_eval.py",
+                "cli/test_det.py", "native/rle_native.py",
+                "native/eval_native.py", "native/build.py"):
         assert mod in names, mod
     for src in ("roi_align_ml.cu", "roi_align.cu", "roi_align_common.cuh"):
         assert (REPO / "iif_torch" / "csrc" / src).is_file(), src
+    for src in ("rle.cpp", "evalmatch.cpp"):
+        assert (REPO / "iif_torch" / "native" / src).is_file(), src
 
 
 def _needs_no_card():
@@ -92,6 +97,20 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         trainer_from_config(Config.fromfile(cfg), None, 100)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_test_det_raises_without_cuda():
+    """``test_det`` checks the device before it reads anything; with
+    ``--device cpu`` it goes on (here to the headline config's missing
+    annotation file)."""
+    _needs_no_card()
+    from iif_torch.cli import test_det
+
+    cfg = str(REPO / "configs/iif/iif_r50_1x.py")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        test_det.main([cfg, "missing.pth"])
+    with pytest.raises(FileNotFoundError, match="lvis_v1_val"):
+        test_det.main([cfg, "missing.pth", "--device", "cpu"])
 
 
 def test_c4_entry_points_raise_without_cuda():

@@ -21,7 +21,8 @@ makes them):
 
 The other tests need only the files, or nothing: every unported knob
 raises ``NotImplementedError`` before training and a class-count mismatch
-``ValueError``; an evaluation is refused only where the run reaches it;
+``ValueError``; an evaluation with a metric the hook does not compute
+(``PQ``) is refused only where the run reaches it;
 the RFS config's repeat factors reach the loader; a non-finite loss
 raises ``FloatingPointError`` at read-back; one step of the C4 config
 runs (no masks), and ``--load-from`` its checkpoint loads every weight."""
@@ -201,7 +202,8 @@ def test_cli_trains_resumes_and_serves(data, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("args,extra,error,match", [
-    ([], {"evaluation.interval": 1}, NotImplementedError, "evaluation"),
+    ([], {"evaluation.interval": 1, "evaluation.metric": ["PQ"]},
+     NotImplementedError, "evaluation"),
     (["--tp", "2"], {}, NotImplementedError, "--tp"),
     (["--selectp", "1"], {}, NotImplementedError, "--selectp"),
     ([], {"runner.type": "EpochBasedDynamicRunner"}, NotImplementedError,
@@ -231,13 +233,17 @@ def test_unported_knobs_raise(data, tmp_path, args, extra, error, match):
     (5, 12, 10, False), (0, 12, 0, False)])
 def test_evaluation_refused_only_where_reached(interval, max_epochs, start,
                                                refused):
-    """The headline config's ``evaluation.interval=12`` with its 12
-    epochs is refused; an interval the run (from ``start`` finished
-    epochs) never reaches is not."""
+    """An evaluation of a metric the hook does not compute (``PQ``; it
+    computes ``bbox`` and ``segm``) at the headline config's
+    ``evaluation.interval=12`` with its 12 epochs is refused; at an
+    interval the run (from ``start`` finished epochs) never reaches it is
+    not. The config as it stands (``bbox``, ``segm``) is never refused."""
     cfg = Config.fromfile(CONFIG)
-    cfg.merge_from_options({"evaluation.interval": interval,
-                            "runner.max_epochs": max_epochs})
     args = train_det.parse_args([CONFIG])
+    train_det.refuse_unported(cfg, args, start)
+    cfg.merge_from_options({"evaluation.interval": interval,
+                            "evaluation.metric": ["bbox", "PQ"],
+                            "runner.max_epochs": max_epochs})
     if refused:
         with pytest.raises(NotImplementedError, match="evaluation"):
             train_det.refuse_unported(cfg, args, start)
