@@ -115,7 +115,34 @@
    ``vec8``), ms/step. Then K1 on the first evaluation batch's features
    and RoIs, and K1 and K2 on the first overfit step's, against their
    plain versions (rows of their own in the ``kernels`` line).
-11. The card's name and power limit, the ``kernels`` JSON line, then the
+11. Classification, CIFAR-100-LT: ``python -m iif_torch.cli.train`` in
+   the process with the README's command (``--model resnet32 --classif
+   iif --iif raw --imb_factor 0.01 --cosine_scheduler``) on ``--dset_name
+   synthetic`` (10,847 training images after the imbalance, 10,000 to
+   evaluate), the CLI's default batch of 32, bf16, 3 epochs, then
+   ``--test-only --load_from`` its checkpoints: ms/step (CUDA events,
+   median and spread), img/s over each epoch and each evaluation, Acc@1
+   and Acc@5, Many / Median / Low, the busy share and kernel split of one
+   profiled step, peak memory. Checks: every loss finite, Acc@1 at least
+   half the JAX CLI's on the CPU with the same flags (``CLS_CIFAR_JAX_
+   ACC1``), ``--test-only`` reproducing the last epoch's Acc@1 exactly,
+   no K1-K4 launch.
+12. Classification, ImageNet-LT shape: the north-star recipe's three
+   calls (``scripts/repro_imagenet_lt.sh``) on 1,000 classes with counts
+   from the exp profile 1280 -> 5 over a pool of 1,024 seeded 256x256 PNGs
+   (ImageNet-LT train and test lists, read through the CLI's
+   ``imagenet_lt`` branch), each epoch cut to 4 b256 steps: stage 1
+   SE-ResNet-50 at 224, ``--bn-groups 4``, cosine head, mixup 0.2
+   (ColorJitter in place of the unported ``--auto-augment imagenet``),
+   stage 2 ``--classif iif --iif smooth --decoup``, the post-hoc IIF
+   ``--test-only`` and the same checkpoint's plain CE evaluation:
+   ms/step and img/s of each stage, peak memory, one profiled stage-1
+   step's busy share and top kernels. Checks: every loss finite, stage 2
+   leaves the trunk equal bit for bit and moves the head and the BN
+   running statistics, the post evaluation's predictions differ from
+   the plain ones, no K1-K4 launch.
+13. The card's name and power limit, the ``kernels`` JSON line (each row
+   also with its launches on the two classification paths), then the
    device line as the last line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or the
@@ -124,6 +151,7 @@ Exits non-zero, with no result line, when CUDA is unavailable or the
 import contextlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -147,6 +175,7 @@ REPLACES = {"K1": "iif_tpu/ops/pallas/roi_align_kernel.py:725",
             "K2": "iif_tpu/ops/pallas/roi_align_kernel.py:769",
             "K3": "iif_tpu/ops/pallas/roi_align_kernel.py:103",
             "K4": "iif_tpu/ops/pallas/roi_align_kernel.py:262"}
+KERNEL_OF = {v: k for k, v in REPLACES.items()}
 C4_CONFIG = "configs/faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py"
 C4_MAP = (50, 84)                  # stride 16 on the 800x1344 canvas
 C4_CHANNELS = 1024
@@ -2406,6 +2435,323 @@ def overfit_phase(torch, np, tmp):
             "captured": captured}
 
 
+# --------------------------------------------------------- classification
+CLS_CIFAR_EPOCHS = 3               # epochs of the CIFAR-100-LT phase
+# Acc@1 of the JAX CLI on the CPU with the same flags, seeds and epochs
+# (python -m iif_tpu.cli.train --dset_name synthetic --model resnet32
+# --classif iif --iif raw --imb_factor 0.01 --cosine_scheduler --epochs 3;
+# PERF.md): the card's run must reach at least half of it
+CLS_CIFAR_JAX_ACC1 = 69.29
+CLS_PROFILED_STEP = 40             # the CIFAR run's profiled step
+LT_CLASSES = 1000
+LT_POOL = 1024                     # seeded 256x256 PNGs the lists reuse
+LT_STEPS = 4                       # b256 steps an epoch (the cut)
+CONV_PARTS = ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad", "fprop",
+              "implicit", "sm90")
+
+
+def roi_launches():
+    """K1-K4 launches counted since the wrappers' last reset."""
+    import iif_torch.ops.roi_align as k34
+    import iif_torch.ops.roi_align_ml as k12
+
+    return {"K1": sum(k12.roi_align_ml.launches_by_size.values()),
+            "K2": sum(k12.grad_launches_by_size.values()),
+            "K3": sum(k34.roi_align.launches_by_size.values()),
+            "K4": sum(k34.grad_launches_by_size.values())}
+
+
+def reset_roi_launches():
+    import iif_torch.ops.roi_align as k34
+    import iif_torch.ops.roi_align_ml as k12
+
+    k12.reset_launches()
+    k34.reset_launches()
+
+
+class ClsRecorder:
+    """Wraps ``ClassificationTrainer``'s ``train_step`` (CUDA events
+    around each step, its loss kept on the device; step ``profile_step``
+    under torch.profiler, drained at its ends), ``train_one_epoch`` (host
+    clock, drained), ``evaluate`` (host clock; its result kept) and the
+    CLI's ``shot_acc`` (its Many / Median / Low kept)."""
+
+    def __init__(self, torch, profile_step=None):
+        self.torch = torch
+        self.profile_step = profile_step
+        self.steps, self.losses, self.epochs, self.evals = [], [], [], []
+        self.shots = []
+        self.profile = None
+
+    def patches(self):
+        from iif_torch.cli import train as cli
+        from iif_torch.engine.classification import ClassificationTrainer
+
+        torch, rec = self.torch, self
+        step_fn = ClassificationTrainer.train_step
+        epoch_fn = ClassificationTrainer.train_one_epoch
+        eval_fn = ClassificationTrainer.evaluate
+
+        def train_step(trainer, state, batch, mix=None):
+            if len(rec.steps) == rec.profile_step:
+                rec.profile, out = profile_cls_step(torch, step_fn, trainer,
+                                                    state, batch)
+                rec.steps.append(None)
+                rec.losses.append(out[1]["loss"])
+                return out
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(trainer, state, batch, mix)
+            end.record()
+            rec.steps.append((start, end))
+            rec.losses.append(out[1]["loss"])
+            return out
+
+        def train_one_epoch(trainer, state, loader, epoch, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = epoch_fn(trainer, state, loader, epoch, **kw)
+            torch.cuda.synchronize()
+            rec.epochs.append((time.perf_counter() - t0,
+                               len(loader) * loader.batch_size))
+            return out
+
+        def evaluate(trainer, batches, print_fn=print):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eval_fn(trainer, batches, print_fn)
+            rec.evals.append((time.perf_counter() - t0, res))
+            return res
+
+        def shot_acc(*args, _fn=cli.shot_acc, **kw):
+            rec.shots.append(_fn(*args, **kw))
+            return rec.shots[-1]
+
+        return [(ClassificationTrainer, "train_step", train_step),
+                (ClassificationTrainer, "train_one_epoch", train_one_epoch),
+                (ClassificationTrainer, "evaluate", evaluate),
+                (cli, "shot_acc", shot_acc)]
+
+    def summary(self):
+        """ms/step (device timeline, CUDA events; the first and the
+        profiled step apart), img/s over each epoch and each evaluation,
+        the losses (all finite)."""
+        steps = [a.elapsed_time(b) for a, b in
+                 (s for s in self.steps if s is not None)]
+        losses = [float(v) for v in self.torch.stack(self.losses).tolist()]
+        check(all(math.isfinite(v) for v in losses),
+              "every training loss finite")
+        return {
+            "steps": len(self.steps), "first_step_ms": steps[0],
+            "step_ms": spread(steps[1:]),
+            "epoch_img_per_s": [n / t for t, n in self.epochs],
+            "epoch_s": [t for t, _ in self.epochs],
+            "eval_img_per_s": [r["count"] / t for t, r in self.evals],
+            "loss_first_last": [losses[0], losses[-1]],
+            "profile": self.profile}
+
+
+def profile_cls_step(torch, step_fn, trainer, state, batch):
+    """One training step under torch.profiler, drained at its ends: the
+    device's busy share of the step's wall time, the kernel time of the
+    convolutions and matmuls against the rest, and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(trainer, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False))
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for lo, hi, name in kernels:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + (hi - lo) / 1e3, c + 1)
+    conv = sum(t for k, (t, _) in by_name.items()
+               if any(p in k.lower() for p in CONV_PARTS))
+    total = sum(t for t, _ in by_name.values())
+    return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / 1e3 / wall,
+            "kernel_ms": total, "conv_gemm_kernel_ms": conv,
+            "other_kernel_ms": total - conv,
+            "kernel_launches": sum(c for _, c in by_name.values()),
+            "top_kernels": [(k[:80], t, c) for k, (t, c) in sorted(
+                by_name.items(), key=lambda kv: -kv[1][0])[:10]]}, out
+
+
+def run_cls_cli(torch, argv, rec):
+    """``python -m iif_torch.cli.train`` in the process with ``rec``'s
+    patches; returns its value and the peak device memory (GiB)."""
+    from iif_torch.cli import train as cli
+
+    torch.cuda.reset_peak_memory_stats()
+    with patched(*rec.patches()):
+        value = cli.main(cli.get_args_parser().parse_args(argv))
+    return value, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def classification_cifar_phase(torch, np, tmp):
+    """The README's classification command on the synthetic CIFAR-100-LT
+    stand-in (100 classes, 10,847 training images after the imbalance,
+    10,000 to evaluate), ResNet-32, IIF raw, cosine schedule, the CLI's
+    default batch (32), bf16, CLS_CIFAR_EPOCHS epochs; then ``--test-only
+    --load_from`` on its checkpoints. Checks: every loss finite, Acc@1 at
+    least half the JAX CLI's on the CPU, ``--test-only`` reproducing the
+    last epoch's Acc@1 exactly, no K1-K4 launch."""
+    out = str(tmp / "cls_cifar")
+    base = ["--dset_name", "synthetic", "--model", "resnet32", "--classif",
+            "iif", "--iif", "raw", "--imb_factor", "0.01"]
+    reset_roi_launches()
+    rec = ClsRecorder(torch, CLS_PROFILED_STEP)
+    t0 = time.perf_counter()
+    best, peak = run_cls_cli(torch, base + [
+        "--cosine_scheduler", "--epochs", str(CLS_CIFAR_EPOCHS),
+        "--output-dir", out, "--print-freq", "100"], rec)
+    train_s = time.perf_counter() - t0
+    last = rec.evals[-1][1]
+    test = ClsRecorder(torch)
+    t0 = time.perf_counter()
+    acc, _ = run_cls_cli(torch, base + [
+        "--test-only", "--load_from", str(Path(out) / "checkpoints"),
+        "--output-dir", str(tmp / "cls_cifar_test")], test)
+    test_s = time.perf_counter() - t0
+    res = test.evals[0][1]
+    launches = roi_launches()
+    summary = rec.summary()
+    log("classification CIFAR-100-LT Acc@1 by epoch",
+        [r["acc1"] for _, r in rec.evals])
+    check(acc == last["acc1"],
+          f"--test-only Acc@1 {acc} equal to training's last {last['acc1']}")
+    check(last["acc1"] >= 0.5 * CLS_CIFAR_JAX_ACC1,
+          f"Acc@1 {last['acc1']} >= half the JAX CLI's {CLS_CIFAR_JAX_ACC1}")
+    check(not any(launches.values()), f"no K1-K4 launch: {launches}")
+    check(rec.epochs[0][1] == 10847 // 32 * 32 and res["count"] == 10000,
+          "10,847 training images in b32 steps, 10,000 to evaluate")
+    return {"epochs": CLS_CIFAR_EPOCHS, "batch": 32, **summary,
+            "acc1": last["acc1"], "acc5": last["acc5"], "best_acc1": best,
+            "test_only_acc1": acc, "many_median_low": test.shots[0],
+            "test_eval_img_per_s": res["count"] / test.evals[0][0],
+            "train_s": train_s, "test_s": test_s, "peak_gib": peak,
+            "launches": launches}
+
+
+def write_lt_lists(np, root):
+    """LT_POOL seeded 256x256 PNGs under ``root/pool`` and ImageNet-LT
+    format lists: the train list with LT_CLASSES classes of counts from
+    the exp profile 1280 -> 5 (ImageNet-LT's largest and smallest), each
+    line a pool image; the eval list one image a class."""
+    from iif_torch.detection.image_io import write_png
+
+    rng = np.random.RandomState(12)
+    os.makedirs(root / "pool", exist_ok=True)
+    for i in range(LT_POOL):
+        base = rng.randint(0, 256, 3)
+        img = (base[None, None, :] + rng.randint(-40, 41, (256, 256, 3)))
+        write_png(str(root / "pool" / f"{i}.png"),
+                  np.clip(img, 0, 255).astype(np.uint8))
+    c = np.arange(LT_CLASSES)
+    counts = np.round(1280.0 * (5.0 / 1280.0) ** (c / (LT_CLASSES - 1.0))
+                      ).astype(int)
+    labels = np.repeat(c, counts)
+    with open(root / "ImageNet_LT_train.txt", "w") as f:
+        f.writelines(f"pool/{i % LT_POOL}.png {y}\n"
+                     for i, y in enumerate(labels))
+    with open(root / "ImageNet_LT_test.txt", "w") as f:
+        f.writelines(f"pool/{(7 * y) % LT_POOL}.png {y}\n" for y in c)
+    return counts
+
+
+def classification_lt_phase(torch, np, tmp):
+    """The north-star recipe's three calls (``scripts/repro_imagenet_lt.
+    sh``) on ImageNet-LT-shaped seeded data (``write_lt_lists``): stage 1
+    ``se_resnet50 -b 256 --bn-groups 4 --lr 0.2 --cosine_scheduler
+    --classif_norm cosine --mixup 0.2`` (ColorJitter in place of
+    ``--auto-augment imagenet``, not ported), stage 2 ``--classif iif
+    --iif smooth --decoup --lr 0.00002 --load_from`` stage 1, the post-hoc
+    ``--classif iif --iif smooth --test-only``, and the same checkpoint's
+    plain CE evaluation; each epoch cut to LT_STEPS b256 steps. Checks:
+    every loss finite, stage 2 leaves the trunk's parameters equal bit for
+    bit and moves the head and the BN running statistics, the post
+    evaluation's predictions differ from the plain CE ones, no K1-K4
+    launch."""
+    from iif_torch.data.loader import Loader
+
+    root = tmp / "lt"
+    t0 = time.perf_counter()
+    counts = write_lt_lists(np, root)
+    data_s = time.perf_counter() - t0
+    base = ["--dset_name", "imagenet_lt", "--data-path", str(root),
+            "--train-txt", str(root / "ImageNet_LT_train.txt"),
+            "--eval-txt", str(root / "ImageNet_LT_test.txt"),
+            "--model", "se_resnet50", "-b", "256", "--classif_norm",
+            "cosine", "--seed", "0", "--print-freq", "1"]
+    s1, s2 = root / "stage1", root / "stage2"
+    real_len = Loader.__len__
+    reset_roi_launches()
+    recs, peaks = {}, {}
+    with patched((Loader, "__len__",
+                  lambda self: min(real_len(self), LT_STEPS))):
+        recs["stage1"] = ClsRecorder(torch, profile_step=2)
+        _, peaks["stage1"] = run_cls_cli(torch, base + [
+            "--output-dir", str(s1), "--bn-groups", "4", "--lr", "0.2",
+            "--epochs", "1", "--cosine_scheduler", "--reduction", "mean",
+            "--mixup", "0.2", "--momentum", "0.9", "--wd", "1e-4"],
+            recs["stage1"])
+        recs["stage2"] = ClsRecorder(torch)
+        _, peaks["stage2"] = run_cls_cli(torch, base + [
+            "--output-dir", str(s2), "--bn-groups", "4", "--lr", "0.00002",
+            "--epochs", "1", "--reduction", "mean", "--mixup", "0.2",
+            "--load_from", str(s1 / "checkpoints"), "--classif", "iif",
+            "--decoup", "--iif", "smooth"], recs["stage2"])
+    recs["post"] = ClsRecorder(torch)
+    post_acc, peaks["post"] = run_cls_cli(torch, base + [
+        "--output-dir", str(root / "post"), "--load_from",
+        str(s1 / "checkpoints"), "--classif", "iif", "--iif", "smooth",
+        "--test-only", "--record-result"], recs["post"])
+    recs["plain"] = ClsRecorder(torch)
+    plain_acc, _ = run_cls_cli(torch, base + [
+        "--output-dir", str(root / "plain"), "--load_from",
+        str(s1 / "checkpoints"), "--test-only"], recs["plain"])
+    launches = roi_launches()
+    one = torch.load(s1 / "checkpoints" / "latest.pth",
+                     weights_only=True)["state_dict"]
+    two = torch.load(s2 / "checkpoints" / "latest.pth",
+                     weights_only=True)["state_dict"]
+    trunk = [k for k in one if not k.startswith("fc.")
+             and "running" not in k and "num_batches" not in k]
+    check(all(torch.equal(one[k], two[k]) for k in trunk),
+          "stage 2 leaves every trunk parameter equal bit for bit")
+    check(not torch.equal(one["fc.weight"], two["fc.weight"]),
+          "stage 2 moves the head")
+    check(any(not torch.equal(one[k], two[k]) for k in one
+              if "running" in k), "stage 2 moves the BN running statistics")
+    post = recs["post"].evals[0][1]
+    plain = recs["plain"].evals[0][1]
+    changed = int((post["preds"] != plain["preds"]).sum())
+    check(changed > 0, "the post-hoc IIF evaluation's predictions differ "
+          "from the plain CE evaluation's")
+    check(not any(launches.values()), f"no K1-K4 launch: {launches}")
+    stages = {k: recs[k].summary() for k in ("stage1", "stage2")}
+    return {"train_images": int(counts.sum()), "counts_max_min":
+            [int(counts.max()), int(counts.min())], "pool": LT_POOL,
+            "steps_an_epoch": LT_STEPS, "data_s": data_s, **stages,
+            "post_acc1": post_acc, "plain_acc1": plain_acc,
+            "post_many_median_low": recs["post"].shots[0],
+            "post_eval_img_per_s": post["count"] / recs["post"].evals[0][0],
+            "predictions_changed_by_iif": changed, "peak_gib": peaks,
+            "trunk_tensors_equal": len(trunk), "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2485,6 +2831,12 @@ def main() -> int:
         overfit = overfit_phase(torch, np, Path(tmp))
         overfit_captured = overfit.pop("captured")
         log("overfit", json.dumps(overfit), "card", card)
+        cls_cifar = classification_cifar_phase(torch, np, Path(tmp))
+        log("classification CIFAR-100-LT", json.dumps(cls_cifar), "card",
+            card)
+        cls_lt = classification_lt_phase(torch, np, Path(tmp))
+        log("classification ImageNet-LT shape", json.dumps(cls_lt), "card",
+            card)
     eval_k1 = {}
     for o, rois in ((7, eval_rois7), (14, eval_rois14)):
         for dt in (torch.float32, torch.bfloat16):
@@ -2634,6 +2986,11 @@ def main() -> int:
                 kernels.append(path_row(
                     rows, o, key, suffix,
                     {path_name: path_launches[key].get(o, 0)}, where))
+    for row in kernels:
+        row["launches_by_path"]["classification_cifar"] = \
+            cls_cifar["launches"][KERNEL_OF[row["replaces"]]]
+        row["launches_by_path"]["classification_imagenet_lt"] = \
+            cls_lt["launches"][KERNEL_OF[row["replaces"]]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,58 +35,16 @@ from iif_torch.detection.mask_head import FCNMaskHead
 from iif_torch.detection.necks import FPN
 from iif_torch.detection.rpn import RPNHead
 from iif_torch.models.resnet import Bottleneck, ResLayer, ResNet
+from iif_torch.utils.init import ParamInit, receptive
 
-# flax's truncated_normal variance scaling divides the standard deviation
-# by the std of a unit normal truncated to [-2, 2]
-_TRUNC_STD = 0.87962566103423978
-
-
-class _Init:
-    """Draws into tensors from one generator and remembers which it
-    filled."""
-
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
-        self.done = set()
-
-    def _set(self, t: torch.Tensor, value: torch.Tensor) -> None:
-        t.copy_(value)
-        self.done.add(id(t))
-
-    def const(self, t: torch.Tensor, value: float) -> None:
-        self._set(t, torch.full(t.shape, float(value)))
-
-    def normal(self, t: torch.Tensor, std: float) -> None:
-        self._set(t, torch.randn(t.shape, generator=self.generator) * std)
-
-    def uniform(self, t: torch.Tensor, limit: float) -> None:
-        u = torch.rand(t.shape, generator=self.generator)
-        self._set(t, (2.0 * u - 1.0) * limit)
-
-    def truncated_normal(self, t: torch.Tensor, std: float) -> None:
-        s = std / _TRUNC_STD
-        v = torch.empty(t.shape)
-        nn.init.trunc_normal_(v, 0.0, s, -2.0 * s, 2.0 * s,
-                              generator=self.generator)
-        self._set(t, v)
-
-    def bias(self, layer: nn.Module, value: float = 0.0) -> None:
-        if layer.bias is not None:
-            self.const(layer.bias, value)
-
-
-def _receptive(weight: torch.Tensor) -> int:
-    return math.prod(weight.shape[2:])
-
-
-def _conv_fan_out(init: _Init, conv: nn.Conv2d) -> None:
+def _conv_fan_out(init: ParamInit, conv: nn.Conv2d) -> None:
     """``variance_scaling(2, fan_out, normal)``: fan_out = out x kh x kw."""
     w = conv.weight
-    init.normal(w, math.sqrt(2.0 / (w.shape[0] * _receptive(w))))
+    init.normal(w, math.sqrt(2.0 / (w.shape[0] * receptive(w))))
     init.bias(conv)
 
 
-def _trunk(init: _Init, trunk: nn.Module) -> None:
+def _trunk(init: ParamInit, trunk: nn.Module) -> None:
     for m in trunk.modules():
         if isinstance(m, nn.Conv2d):
             _conv_fan_out(init, m)
@@ -100,28 +58,28 @@ def _trunk(init: _Init, trunk: nn.Module) -> None:
             init.const(m.bn3.weight, 0.0)
 
 
-def _fpn(init: _Init, fpn: FPN) -> None:
+def _fpn(init: ParamInit, fpn: FPN) -> None:
     """``xavier_uniform``: U(-a, a), a = sqrt(6 / (fan_in + fan_out))."""
     for m in fpn.modules():
         if isinstance(m, nn.Conv2d):
             w = m.weight
-            fans = (w.shape[0] + w.shape[1]) * _receptive(w)
+            fans = (w.shape[0] + w.shape[1]) * receptive(w)
             init.uniform(w, math.sqrt(6.0 / fans))
             init.bias(m)
 
 
-def _rpn(init: _Init, rpn: RPNHead) -> None:
+def _rpn(init: ParamInit, rpn: RPNHead) -> None:
     for conv in (rpn.rpn_conv, rpn.rpn_cls, rpn.rpn_reg):
         init.normal(conv.weight, 0.01)
         init.bias(conv)
 
 
-def _linear_lecun(init: _Init, fc: nn.Linear) -> None:
+def _linear_lecun(init: ParamInit, fc: nn.Linear) -> None:
     init.truncated_normal(fc.weight, math.sqrt(1.0 / fc.weight.shape[1]))
     init.bias(fc)
 
 
-def _bbox_head(init: _Init, head: Shared2FCBBoxHead) -> None:
+def _bbox_head(init: ParamInit, head: Shared2FCBBoxHead) -> None:
     for fc in head.shared_fcs:
         _linear_lecun(init, fc)
     kind, value = head.cls_init[:2]
@@ -137,17 +95,17 @@ def _bbox_head(init: _Init, head: Shared2FCBBoxHead) -> None:
     init.bias(head.fc_reg)
 
 
-def _mask_head(init: _Init, head: FCNMaskHead) -> None:
+def _mask_head(init: ParamInit, head: FCNMaskHead) -> None:
     for m in head.convs:
         _conv_fan_out(init, m.conv)
     up = head.upsample.weight                 # (in, out, kh, kw)
-    init.truncated_normal(up, math.sqrt(1.0 / (up.shape[0] * _receptive(up))))
+    init.truncated_normal(up, math.sqrt(1.0 / (up.shape[0] * receptive(up))))
     init.bias(head.upsample)
     init.normal(head.conv_logits.weight, 0.001)
     init.bias(head.conv_logits)
 
 
-def _c4_bbox_head(init: _Init, head: C4BBoxHead) -> None:
+def _c4_bbox_head(init: ParamInit, head: C4BBoxHead) -> None:
     init.normal(head.fc_cls.weight, 0.01)
     init.bias(head.fc_cls)
     init.normal(head.fc_reg.weight, 0.001)
@@ -164,7 +122,7 @@ def fresh_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     any module built of the families above) from its flax initialiser's
     family, in place. Raises ``NotImplementedError`` if a parameter or
     statistic belongs to no known family."""
-    init = _Init(generator)
+    init = ParamInit(generator)
     with torch.no_grad():
         for m in model.modules():
             for cls, fill in _FAMILIES:

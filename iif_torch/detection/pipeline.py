@@ -35,8 +35,6 @@ yields numpy batches; the trainer copies them to the card.
 """
 from __future__ import annotations
 
-import queue
-import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -52,6 +50,7 @@ from iif_torch.detection.datasets import (
 )
 from iif_torch.detection.image_io import read_image
 from iif_torch.detection.mask_utils import fill_poly, segm_to_bitmap
+from iif_torch.utils.prefetch import prefetch
 
 IMAGENET_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 DEFAULT_SCALE = (1333, 800)
@@ -267,47 +266,7 @@ class DetectionLoader:
         return len(self.base_indices) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        if self.prefetch <= 0:
-            yield from self._batches()
-            return
-        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
-        stop = threading.Event()
-        done = object()
-
-        def put(item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.05)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def produce():
-            batches = self._batches()
-            try:
-                for b in batches:
-                    if not put(b):
-                        return
-                put(done)
-            except BaseException as e:  # noqa: BLE001 - re-raised below
-                put(e)
-            finally:
-                batches.close()
-
-        t = threading.Thread(target=produce, daemon=True)
-        t.start()
-        try:
-            while True:
-                item = q.get()
-                if item is done:
-                    return
-                if isinstance(item, BaseException):
-                    raise item
-                yield item
-        finally:
-            stop.set()
-            t.join()
+        return prefetch(self._batches, self.prefetch)
 
     def _batches(self) -> Iterator[Dict[str, np.ndarray]]:
         order = self.base_indices[group_epoch_order(

@@ -1,0 +1,217 @@
+"""Classification trainer: port of ``iif_tpu/engine/classification.py``
+(``ClassificationTrainer`` without QAT) on one card.
+
+A step: the uint8 batch to the device, the augmentation there (its draws
+and mixup's permutation from a ``torch.Generator`` seeded from ``(seed,
+step)``, mixup's lambda from a host ``RandomState`` seeded so), the
+input in the compute dtype, optional mixup (f32, as in JAX), the forward
+with BatchNorm on the batch's statistics, the logits in f32, the
+criterion, the backward, SGD over the trainable parameters and the
+schedule's next rate; metrics (loss, Acc@1, Acc@5 from a stable top-5,
+ties in index order as ``jax.lax.top_k``) stay on the device.
+``train_one_epoch`` reads them back every ``SYNC_WINDOW`` steps and at
+each print point, as the JAX package's does. ``evaluate`` runs the model
+on its running statistics, applies the inference-time IIF (``logits *
+w``) for an IIF criterion only, and counts hits on the device; it returns
+the JAX package's dict (accuracies, per-class counts, ``preds`` and
+``labels`` of the valid rows for ``shot_acc``).
+
+Images enter as (B, H, W, 3), as in JAX; the model takes the NCHW view of
+the NHWC batch (``channels_last`` memory). The step and the evaluation
+are ``record_function`` spans (``augment``, ``forward``, ``backward``,
+``optimizer``).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from iif_torch.device import resolve_device
+from iif_torch.engine.schedules import build_optimizer
+from iif_torch.losses.mixup import mixup_batch, mixup_criterion, sample_mixup
+from iif_torch.ops.nms import top_k
+from iif_torch.utils.metrics import MetricLogger, SmoothedValue
+
+SYNC_WINDOW = 4           # steps of metrics in flight before a read-back
+
+
+@dataclass
+class TrainState:
+    step: int
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+
+
+class ClassificationTrainer:
+    """Trains ``model`` (on ``device``, default the card) with
+    ``criterion`` under ``lr_schedule``. ``train_augment(generator,
+    images_u8)`` and ``eval_transform(images_u8)`` map a (B, H, W, 3)
+    uint8 batch on the device to float; ``mixup_alpha`` turns mixup on;
+    ``compute_dtype`` is the input's dtype (the model's convolutions take
+    theirs from the model)."""
+
+    def __init__(self, model: torch.nn.Module, criterion,
+                 lr_schedule: Callable[[int], float],
+                 train_augment: Callable, eval_transform: Callable,
+                 num_classes: int, mixup_alpha: Optional[float] = None,
+                 compute_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 opt: str = "sgd", momentum: float = 0.9,
+                 weight_decay: float = 1e-4,
+                 device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.criterion = criterion.to(self.device)
+        self.lr_schedule = lr_schedule
+        self.train_augment = train_augment
+        self.eval_transform = eval_transform
+        self.num_classes = num_classes
+        self.mixup_alpha = mixup_alpha
+        self.compute_dtype = compute_dtype
+        self.seed = seed
+        self.opt = (opt, momentum, weight_decay)
+
+    def init_state(self) -> TrainState:
+        """The optimizer over the parameters that require a gradient, at
+        step 0."""
+        name, momentum, wd = self.opt
+        opt, sched = build_optimizer(name, self.model.parameters(),
+                                     self.lr_schedule, momentum, wd)
+        return TrainState(0, opt, sched)
+
+    def _images(self, batch: Dict[str, Any]) -> torch.Tensor:
+        return torch.as_tensor(batch["image"]).to(self.device)
+
+    def train_step(self, state: TrainState, batch: Dict[str, Any],
+                   mix: Optional[Tuple[Any, Any]] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One SGD step on ``batch`` ({image, label}); ``mix`` = (lam,
+        index) replaces mixup's draw. Updates the model and ``state`` in
+        place and returns them with the metrics (device tensors)."""
+        images = self._images(batch)
+        y = torch.as_tensor(batch["label"]).to(self.device).long()
+        self.model.train()
+        generator = torch.Generator(device=self.device).manual_seed(
+            ((self.seed & 0xFFFFFFFF) << 32) | (state.step & 0xFFFFFFFF))
+        with record_function("augment"):
+            x = self.train_augment(generator, images).to(self.compute_dtype)
+            if self.mixup_alpha is not None:
+                lam, index = mix if mix is not None else sample_mixup(
+                    np.random.RandomState([self.seed & 0xFFFFFFFF,
+                                           state.step & 0xFFFFFFFF]),
+                    generator, x.shape[0], self.mixup_alpha)
+                x, y_a, y_b, lam = mixup_batch(x, y, lam, index)
+        with record_function("forward"):
+            logits = self.model(x.permute(0, 3, 1, 2)).float()
+            if self.mixup_alpha is not None:
+                loss = mixup_criterion(self.criterion, logits, y_a, y_b, lam)
+            else:
+                loss = self.criterion(logits, y)
+        with record_function("backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with record_function("optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
+        state.step += 1
+        with torch.no_grad():
+            _, top5 = top_k(logits.detach(), 5)
+            correct = top5 == y[:, None]
+            metrics = {"loss": loss.detach(),
+                       "acc1": correct[:, :1].any(1).float().mean() * 100.0,
+                       "acc5": correct.any(1).float().mean() * 100.0}
+        return state, metrics
+
+    def train_one_epoch(self, state: TrainState, loader, epoch: int,
+                        print_freq: int = 100, print_fn=print,
+                        log_writer=None) -> Tuple[TrainState, MetricLogger]:
+        """One epoch of ``loader`` (``set_epoch(epoch)`` first); img/s
+        is the images absorbed over the wall time between read-backs."""
+        logger = MetricLogger(print_fn=print_fn)
+        logger.meters["img/s"] = SmoothedValue(window_size=10,
+                                               fmt="{value:.1f}")
+        loader.set_epoch(epoch)
+        total = len(loader)
+
+        def sink(rec):
+            if log_writer is not None:
+                log_writer.write({"mode": "train", "epoch": epoch + 1,
+                                  **rec}, step=epoch * total + rec["iter"])
+
+        pending: List[Tuple[Dict[str, torch.Tensor], int]] = []
+        clock: List[Optional[float]] = [None]
+
+        def absorb(n: int) -> None:
+            group, imgs = pending[:n], 0
+            del pending[:n]
+            for metrics, bsz in group:
+                loss, acc1, acc5 = torch.stack(
+                    [metrics["loss"], metrics["acc1"], metrics["acc5"]]
+                ).tolist()
+                logger.update(loss=loss, acc1=acc1, acc5=acc5)
+                imgs += bsz
+            now = time.time()
+            if clock[0] is not None:
+                logger.meters["img/s"].update(
+                    imgs / max(now - clock[0], 1e-9))
+            clock[0] = now
+
+        for i, batch in enumerate(logger.log_every(
+                iter(loader), print_freq, f"Epoch: [{epoch}]", total=total,
+                sink=sink)):
+            if clock[0] is None:
+                clock[0] = time.time()
+            state, metrics = self.train_step(state, batch)
+            pending.append((metrics, int(batch["image"].shape[0])))
+            if print_freq and (i % print_freq == 0 or i == total - 1):
+                absorb(len(pending))
+            elif len(pending) >= SYNC_WINDOW:
+                absorb(1)
+        if pending:
+            absorb(len(pending))
+        return state, logger
+
+    @torch.no_grad()
+    def evaluate(self, batches: Iterable[Dict[str, Any]], print_fn=print
+                 ) -> Dict[str, Any]:
+        """Accuracy over ``batches`` ({image, label, valid}) on the
+        running statistics."""
+        self.model.eval()
+        c = self.num_classes
+        counts = torch.zeros(3, dtype=torch.long, device=self.device)
+        percls = torch.zeros(2, c, dtype=torch.long, device=self.device)
+        preds, labels = [], []
+        for batch in batches:
+            images = self._images(batch)
+            y = torch.as_tensor(batch["label"]).to(self.device).long()
+            valid = torch.as_tensor(batch["valid"]).to(self.device).bool()
+            x = self.eval_transform(images).to(self.compute_dtype)
+            logits = self.model(x.permute(0, 3, 1, 2)).float()
+            if getattr(self.criterion, "iif", False):
+                logits = self.criterion.transform(logits)
+            _, top5 = top_k(logits, 5)
+            hit = top5 == y[:, None]
+            c1 = hit[:, 0] & valid
+            counts += torch.stack([c1.sum(), (hit.any(1) & valid).sum(),
+                                   valid.sum()])
+            percls[0].index_add_(0, y, c1.long())
+            percls[1].index_add_(0, y, valid.long())
+            preds.append(top5[:, 0][valid])
+            labels.append(y[valid])
+        correct1, correct5, count = counts.tolist()
+        acc1 = 100.0 * correct1 / max(count, 1)
+        acc5 = 100.0 * correct5 / max(count, 1)
+        print_fn(f" * Acc@1 {acc1:.3f} Acc@5 {acc5:.3f}")
+        percls = percls.cpu().numpy().astype(np.float64)
+        return {
+            "acc1": acc1, "acc5": acc5, "count": float(count),
+            "percls_correct": percls[0], "percls_total": percls[1],
+            "preds": (torch.cat(preds).cpu().numpy() if preds
+                      else np.empty(0, np.int64)),
+            "labels": (torch.cat(labels).cpu().numpy() if labels
+                       else np.empty(0, np.int64)),
+        }

@@ -1,7 +1,14 @@
-"""ResNet v1.5 trunk for detection: port of ``iif_tpu/models/resnet.py``
-(``ResNet``, ``Bottleneck``, ``ResLayer``) with mmdet's state_dict names
-(``conv1``, ``bn1``, ``layer{s}.{i}.conv{1,2,3}``,
-``layer{s}.{i}.downsample.{0,1}``).
+"""ResNet v1.5: port of ``iif_tpu/models/resnet.py`` (``ResNet``,
+``Bottleneck``, ``ResLayer``, the classifier constructors) with
+torchvision's and mmdet's state_dict names (``conv1``, ``bn1``,
+``layer{s}.{i}.conv{1,2,3}``, ``layer{s}.{i}.downsample.{0,1}``,
+``layer{s}.{i}.se.fc{1,2}``, ``fc``).
+
+As a detection trunk (``num_classes=None``) it returns its stage outputs;
+as a classifier it pools them globally and applies the head of
+``use_norm`` (``iif_torch/models/layers.py``), ``use_se`` adding the SE
+block (r=16) after each bottleneck's ``bn3``: ``resnet50/101/152`` and
+``se_resnet50``.
 
 ``num_stages=3`` is the C4 trunk (mmdet ``num_stages=3``): no ``layer4``,
 three outputs. ``ResLayer`` is res5 run per RoI as the C4 shared head
@@ -13,8 +20,11 @@ Training follows the detection configs: ``frozen_stages`` freezes the stem
 and the first stages (no gradient: their parameters do not require it and
 their outputs are detached where the JAX package stops the gradient), and
 ``norm_eval=True`` keeps every BatchNorm on its running statistics while
-its affine parameters train. BN batch statistics (``norm_eval=False``)
-are not ported.
+its affine parameters train. Elsewhere a BatchNorm in training mode takes
+its batch's statistics (``iif_torch/models/norm.py``: ``"bn"``, or
+``"bn@G"`` with ``bn_groups=G``); ``train()`` leaves the stem and the
+frozen stages, or with ``norm_eval`` every BatchNorm, on the running
+statistics, as the JAX package's ``stage_train`` does.
 
 Padding is explicit as in the JAX package: stem 7x7/2 pad 3, max-pool 3/2
 pad 1, the stride on the 3x3 conv. Parameters stay f32; convolutions run
@@ -24,11 +34,14 @@ flax's BatchNorm does. Tensors are NCHW in ``channels_last`` memory.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from iif_torch.models.layers import SEBlock, make_classifier_head
+from iif_torch.models.norm import batch_norm_train
 
 
 def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor,
@@ -43,11 +56,22 @@ def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor,
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm on its running statistics in flax's op order: (x - mean)
-    * (rsqrt(var + eps) * scale) + bias, in f32, rounded to the input
-    dtype. The statistics never update (``norm_eval``)."""
+    """BatchNorm in flax's op order. In eval mode on its running
+    statistics: (x - mean) * (rsqrt(var + eps) * scale) + bias, in f32,
+    rounded to the input dtype. In training mode on the batch's
+    statistics (``batch_norm_train``; ``groups`` 0 for ``"bn"``, G for
+    ``"bn@G"``), updating the running ones."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 groups: int = 0):
+        super().__init__(num_features, eps=eps)
+        self.groups = groups
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return batch_norm_train(x, self.weight, self.bias,
+                                    self.running_mean, self.running_var,
+                                    self.eps, self.groups)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.float() - self.running_mean[:, None, None]) \
             * mul[:, None, None] + self.bias[:, None, None]
@@ -55,31 +79,37 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class Bottleneck(nn.Module):
-    """torchvision v1.5 bottleneck: stride on the 3x3 conv."""
+    """torchvision v1.5 bottleneck: stride on the 3x3 conv; with
+    ``use_se`` the SE block (r=16) after ``bn3``. The SE block's f32
+    output promotes the residual sum to f32, as in JAX."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, compute_dtype=None):
+                 downsample: bool = False, compute_dtype=None,
+                 use_se: bool = False, bn_groups: int = 0):
         super().__init__()
         self.compute_dtype = compute_dtype
         out = planes * self.expansion
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, 1e-5, bn_groups)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn2 = BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, 1e-5, bn_groups)
         self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
-        self.bn3 = BatchNorm2d(out, eps=1e-5)
+        self.bn3 = BatchNorm2d(out, 1e-5, bn_groups)
+        self.se = SEBlock(out, 16) if use_se else None
         self.downsample = (nn.Sequential(
             nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
-            BatchNorm2d(out, eps=1e-5)) if downsample else None)
+            BatchNorm2d(out, 1e-5, bn_groups)) if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         out = F.relu(self.bn1(conv_in_dtype(self.conv1, x, dt)))
         out = F.relu(self.bn2(conv_in_dtype(self.conv2, out, dt)))
         out = self.bn3(conv_in_dtype(self.conv3, out, dt))
+        if self.se is not None:
+            out = self.se(out)
         identity = x
         if self.downsample is not None:
             identity = self.downsample[1](
@@ -88,7 +118,8 @@ class Bottleneck(nn.Module):
 
 
 def _stage(inplanes: int, planes: int, n_blocks: int, stride: int,
-           compute_dtype) -> nn.Sequential:
+           compute_dtype, use_se: bool = False,
+           bn_groups: int = 0) -> nn.Sequential:
     """One stage of bottlenecks, the first taking the stride and, where
     the shape changes, the projection shortcut."""
     blocks = []
@@ -97,44 +128,63 @@ def _stage(inplanes: int, planes: int, n_blocks: int, stride: int,
         downsample = first and (
             stride != 1 or inplanes != planes * Bottleneck.expansion)
         blocks.append(Bottleneck(inplanes, planes, stride if first else 1,
-                                 downsample, compute_dtype))
+                                 downsample, compute_dtype, use_se,
+                                 bn_groups))
         inplanes = planes * Bottleneck.expansion
     return nn.Sequential(*blocks)
 
 
 class ResNet(nn.Module):
-    """Bottleneck ResNet returning its stage outputs (C2..C5, or C2..C4
-    with ``num_stages=3``)."""
+    """Bottleneck ResNet. With ``num_classes=None`` a trunk returning its
+    stage outputs (C2..C5, or C2..C4 with ``num_stages=3``); with
+    ``num_classes`` a classifier: global average pool and the head of
+    ``use_norm`` (named ``fc``)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  frozen_stages: int = -1, norm_eval: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
-                 num_stages: int = 4):
+                 num_stages: int = 4, num_classes: Optional[int] = None,
+                 use_norm: Optional[str] = None, use_se: bool = False,
+                 bn_groups: int = 0):
         super().__init__()
         self.frozen_stages = frozen_stages
         self.norm_eval = norm_eval
         self.compute_dtype = compute_dtype
         self.num_stages = num_stages
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64, 1e-5, bn_groups)
         inplanes = 64
         for stage, (planes, n_blocks) in enumerate(
                 zip((64, 128, 256, 512)[:num_stages], layers), start=1):
             self.add_module(f"layer{stage}", _stage(
                 inplanes, planes, n_blocks, 1 if stage == 1 else 2,
-                compute_dtype))
+                compute_dtype, use_se, bn_groups))
             inplanes = planes * Bottleneck.expansion
+        self.fc = (None if num_classes is None
+                   else make_classifier_head(inplanes, num_classes, use_norm))
         if frozen_stages >= 0:            # mmdet ResNet._freeze_stages
             for mod in [self.conv1, self.bn1] + [
                     getattr(self, f"layer{s}")
                     for s in range(1, frozen_stages + 1)]:
                 mod.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        if self.training and not self.norm_eval:
-            raise NotImplementedError(
-                "norm_eval=False needs BatchNorm batch statistics, which "
-                "are not ported")
+    def train(self, mode: bool = True) -> "ResNet":
+        """Training mode, with the BatchNorms of the stem and the frozen
+        stages (all of them under ``norm_eval``) on their running
+        statistics."""
+        super().train(mode)
+        if mode:
+            fixed = [self] if self.norm_eval else (
+                [self.bn1] + [getattr(self, f"layer{s}") for s in range(
+                    1, self.frozen_stages + 1)]
+                if self.frozen_stages >= 0 else [])
+            for mod in fixed:
+                for m in mod.modules():
+                    if isinstance(m, nn.BatchNorm2d):
+                        m.train(False)
+        return self
+
+    def forward(self, x: torch.Tensor):
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         out = F.relu(self.bn1(conv_in_dtype(self.conv1, x,
@@ -148,7 +198,9 @@ class ResNet(nn.Module):
             if stage <= self.frozen_stages:
                 out = out.detach()
             feats.append(out)
-        return tuple(feats)
+        if self.fc is None:
+            return tuple(feats)
+        return self.fc(out.mean((2, 3)))
 
 
 class ResLayer(nn.Module):
@@ -158,8 +210,8 @@ class ResLayer(nn.Module):
     (14x14 RoIs -> 7x7). Its BatchNorms run on their running statistics
     in flax's op order in f32, in training too (``norm_eval=True``, as
     the C4 config trains it): the convs and the BN affine parameters
-    train, the statistics stay. Training with batch statistics
-    (``norm_eval=False``) is not ported, as in ``ResNet``."""
+    train, the statistics stay. BN statistics over a batch of RoIs
+    (``norm_eval=False``, which no config sets) are not ported."""
 
     def __init__(self, n_blocks: int = 3, norm_eval: bool = True,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -168,12 +220,41 @@ class ResLayer(nn.Module):
         self.compute_dtype = compute_dtype
         self.layer4 = _stage(1024, 512, n_blocks, 2, compute_dtype)
 
+    def train(self, mode: bool = True) -> "ResLayer":
+        super().train(mode)
+        if mode:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.train(False)
+        return self
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(R, 1024, 14, 14) NCHW -> (R, 2048, 7, 7)."""
         if self.training and not self.norm_eval:
             raise NotImplementedError(
-                "norm_eval=False needs BatchNorm batch statistics, which "
-                "are not ported")
+                "norm_eval=False (BatchNorm statistics over a batch of "
+                "RoIs) is not ported")
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         return self.layer4(x)
+
+
+# ------------------------------------------------------------ classifiers
+def resnet50(num_classes: int = 1000, use_norm=None, **kw) -> ResNet:
+    return ResNet((3, 4, 6, 3), num_classes=num_classes, use_norm=use_norm,
+                  **kw)
+
+
+def resnet101(num_classes: int = 1000, use_norm=None, **kw) -> ResNet:
+    return ResNet((3, 4, 23, 3), num_classes=num_classes,
+                  use_norm=use_norm, **kw)
+
+
+def resnet152(num_classes: int = 1000, use_norm=None, **kw) -> ResNet:
+    return ResNet((3, 8, 36, 3), num_classes=num_classes,
+                  use_norm=use_norm, **kw)
+
+
+def se_resnet50(num_classes: int = 1000, use_norm=None, **kw) -> ResNet:
+    return ResNet((3, 4, 6, 3), num_classes=num_classes, use_norm=use_norm,
+                  use_se=True, **kw)

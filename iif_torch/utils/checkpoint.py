@@ -18,15 +18,17 @@ _EPOCH = re.compile(r"epoch_(\d+)\.pth$")
 
 
 def save_checkpoint(work_dir: str, epoch: int, model: torch.nn.Module,
-                    state, config: str = "") -> str:
+                    state, config: str = "",
+                    meta: Optional[Dict[str, Any]] = None) -> str:
     """Write ``epoch_{epoch}.pth`` (``epoch`` counts finished epochs) and
-    point ``latest.pth`` at it; ``state`` is the trainer's
-    ``DetTrainState``. Returns the path."""
+    point ``latest.pth`` at it; ``state`` is the trainer's state (a step,
+    an optimizer, a scheduler); ``meta`` adds entries to the checkpoint's
+    ``meta`` (the classification CLI's args). Returns the path."""
     ckpt_dir = os.path.join(work_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"epoch_{epoch}.pth")
     torch.save({"meta": {"epoch": epoch, "iter": state.step,
-                         "config": config},
+                         "config": config, **(meta or {})},
                 "state_dict": model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
                 "scheduler": state.scheduler.state_dict()}, path)

@@ -60,7 +60,15 @@ def test_port_package_has_every_module():
                 "detection/simple_test.py", "detection/init.py",
                 "detection/evaluation.py", "detection/voc_eval.py",
                 "cli/test_det.py", "native/rle_native.py",
-                "native/eval_native.py", "native/build.py"):
+                "native/eval_native.py", "native/build.py",
+                "losses/ce.py", "losses/iif.py", "losses/focal.py",
+                "losses/mixup.py", "losses/factory.py", "models/norm.py",
+                "models/layers.py", "models/resnet_cifar.py",
+                "models/factory.py", "models/init.py", "models/convert.py",
+                "data/cifar_lt.py", "data/lt_dataset.py",
+                "data/samplers.py", "data/loader.py", "data/augment.py",
+                "engine/classification.py", "engine/per_shot.py",
+                "cli/train.py", "utils/init.py", "utils/prefetch.py"):
         assert mod in names, mod
     for src in ("roi_align_ml.cu", "roi_align.cu", "roi_align_common.cuh"):
         assert (REPO / "iif_torch" / "csrc" / src).is_file(), src
@@ -111,6 +119,26 @@ def test_test_det_raises_without_cuda():
         test_det.main([cfg, "missing.pth"])
     with pytest.raises(FileNotFoundError, match="lvis_v1_val"):
         test_det.main([cfg, "missing.pth", "--device", "cpu"])
+
+
+def test_classification_cli_raises_without_cuda():
+    """``cli.train`` and its trainer check the device first; with
+    ``--device cpu`` the CLI goes on (here to the missing CIFAR files)."""
+    _needs_no_card()
+    from iif_torch.cli import train
+    from iif_torch.engine.classification import ClassificationTrainer
+    from iif_torch.losses import get_criterion
+    from iif_torch.models.factory import build_classifier
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(train.get_args_parser().parse_args([]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClassificationTrainer(build_classifier("resnet20", 10),
+                              get_criterion("ce", [1] * 10), lambda s: 0.1,
+                              None, None, 10)
+    with pytest.raises(FileNotFoundError, match="cifar-100-python"):
+        train.main(train.get_args_parser().parse_args(
+            ["--device", "cpu", "--data-path", str(REPO / "missing")]))
 
 
 def test_c4_entry_points_raise_without_cuda():
