@@ -132,8 +132,8 @@
    from the exp profile 1280 -> 5 over a pool of 1,024 seeded 256x256 PNGs
    (ImageNet-LT train and test lists, read through the CLI's
    ``imagenet_lt`` branch), each epoch cut to 4 b256 steps: stage 1
-   SE-ResNet-50 at 224, ``--bn-groups 4``, cosine head, mixup 0.2
-   (ColorJitter in place of the unported ``--auto-augment imagenet``),
+   SE-ResNet-50 at 224, ``--bn-groups 4``, cosine head, mixup 0.2,
+   ``--auto-augment imagenet`` (the sub-policy of each step logged),
    stage 2 ``--classif iif --iif smooth --decoup``, the post-hoc IIF
    ``--test-only`` and the same checkpoint's plain CE evaluation:
    ms/step and img/s of each stage, peak memory, one profiled stage-1
@@ -141,9 +141,23 @@
    leaves the trunk equal bit for bit and moves the head and the BN
    running statistics, the post evaluation's predictions differ from
    the plain ones, no K1-K4 launch.
-13. The card's name and power limit, the ``kernels`` JSON line (each row
-   also with its launches on the two classification paths), then the
-   device line as the last line.
+13. QAT (``BASELINE.json`` configs[3]'s shape): ``python -m iif_torch.
+   cli.train_quantization --model resnet50 -b 256 --epochs 3
+   --qat-freeze-bn 1 --qat-freeze-observer 2`` on 12.'s lists, each epoch
+   cut to 4 steps, then ``--post-training-quantize --load_from`` its
+   checkpoint (``qat_phase``).
+14. Augmentation: every op of the policies at three levels, a sub-policy
+   of each policy, RandAugment, each OneOf branch, cutout and random
+   erasing on the card at b256 224x224 and b128 32x32, held against the
+   same function on the CPU on the same draws; ms a batch of each policy
+   (``augmentation_phase``).
+15. Classifier families: one b64 bf16 step and 3 timed ones of each of
+   resnet18/34, resnext50_32x4d, resnext101_32x8d, wide_resnet50_2,
+   wide_resnet101_2 and se_resnext50_32x4d at full depth and width, 224
+   (``family_phase``).
+16. The card's name and power limit, the ``kernels`` JSON line (each row
+   also with its launches on the classification, QAT, augmentation and
+   family paths), then the device line as the last line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or the
 ``iif_torch`` package is not beside this file; any failed check raises.
@@ -2492,17 +2506,17 @@ class ClsRecorder:
         epoch_fn = ClassificationTrainer.train_one_epoch
         eval_fn = ClassificationTrainer.evaluate
 
-        def train_step(trainer, state, batch, mix=None):
+        def train_step(trainer, state, batch, mix=None, **kw):
             if len(rec.steps) == rec.profile_step:
                 rec.profile, out = profile_cls_step(torch, step_fn, trainer,
-                                                    state, batch)
+                                                    state, batch, **kw)
                 rec.steps.append(None)
                 rec.losses.append(out[1]["loss"])
                 return out
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = step_fn(trainer, state, batch, mix)
+            out = step_fn(trainer, state, batch, mix, **kw)
             end.record()
             rec.steps.append((start, end))
             rec.losses.append(out[1]["loss"])
@@ -2517,10 +2531,10 @@ class ClsRecorder:
                                len(loader) * loader.batch_size))
             return out
 
-        def evaluate(trainer, batches, print_fn=print):
+        def evaluate(trainer, batches, print_fn=print, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = eval_fn(trainer, batches, print_fn)
+            res = eval_fn(trainer, batches, print_fn, **kw)
             rec.evals.append((time.perf_counter() - t0, res))
             return res
 
@@ -2552,10 +2566,11 @@ class ClsRecorder:
             "profile": self.profile}
 
 
-def profile_cls_step(torch, step_fn, trainer, state, batch):
+def profile_cls_step(torch, step_fn, trainer, state, batch, **kw):
     """One training step under torch.profiler, drained at its ends: the
     device's busy share of the step's wall time, the kernel time of the
-    convolutions and matmuls against the rest, and the top kernels."""
+    convolutions and matmuls against the rest, the device's busy time
+    inside the ``augment`` span, and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2563,7 +2578,7 @@ def profile_cls_step(torch, step_fn, trainer, state, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = step_fn(trainer, state, batch)
+        out = step_fn(trainer, state, batch, **kw)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -2580,7 +2595,10 @@ def profile_cls_step(torch, step_fn, trainer, state, batch):
     conv = sum(t for k, (t, _) in by_name.items()
                if any(p in k.lower() for p in CONV_PARTS))
     total = sum(t for t, _ in by_name.values())
+    aug_windows, aug_wall, aug_busy = busy_in_spans(prof, "augment")
     return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
+            "augment_span": {"windows": aug_windows, "wall_ms": aug_wall,
+                             "device_busy_ms": aug_busy},
             "device_busy_share": busy / 1e3 / wall,
             "kernel_ms": total, "conv_gemm_kernel_ms": conv,
             "other_kernel_ms": total - conv,
@@ -2673,17 +2691,18 @@ def write_lt_lists(np, root):
 
 def classification_lt_phase(torch, np, tmp):
     """The north-star recipe's three calls (``scripts/repro_imagenet_lt.
-    sh``) on ImageNet-LT-shaped seeded data (``write_lt_lists``): stage 1
-    ``se_resnet50 -b 256 --bn-groups 4 --lr 0.2 --cosine_scheduler
-    --classif_norm cosine --mixup 0.2`` (ColorJitter in place of
-    ``--auto-augment imagenet``, not ported), stage 2 ``--classif iif
-    --iif smooth --decoup --lr 0.00002 --load_from`` stage 1, the post-hoc
+    sh``) with its flags on ImageNet-LT-shaped seeded data
+    (``write_lt_lists``): stage 1 ``se_resnet50 -b 256 --bn-groups 4 --lr
+    0.2 --cosine_scheduler --classif_norm cosine --mixup 0.2 --auto-augment
+    imagenet``, stage 2 ``--classif iif --iif smooth --decoup --lr 0.00002
+    --auto-augment imagenet --load_from`` stage 1, the post-hoc
     ``--classif iif --iif smooth --test-only``, and the same checkpoint's
     plain CE evaluation; each epoch cut to LT_STEPS b256 steps. Checks:
     every loss finite, stage 2 leaves the trunk's parameters equal bit for
     bit and moves the head and the BN running statistics, the post
-    evaluation's predictions differ from the plain CE ones, no K1-K4
-    launch."""
+    evaluation's predictions differ from the plain CE ones, an ImageNet
+    sub-policy drawn each step (logged), no K1-K4 launch."""
+    from iif_torch.data import autoaugment
     from iif_torch.data.loader import Loader
 
     root = tmp / "lt"
@@ -2699,20 +2718,30 @@ def classification_lt_phase(torch, np, tmp):
     real_len = Loader.__len__
     reset_roi_launches()
     recs, peaks = {}, {}
+    drawn = []                      # the sub-policy of each step
+    draw_fn = autoaugment.draw_policy
+
+    def draw_policy(*a, **kw):
+        out = draw_fn(*a, **kw)
+        drawn.append(out["index"])
+        return out
+
     with patched((Loader, "__len__",
-                  lambda self: min(real_len(self), LT_STEPS))):
+                  lambda self: min(real_len(self), LT_STEPS)),
+                 (autoaugment, "draw_policy", draw_policy)):
         recs["stage1"] = ClsRecorder(torch, profile_step=2)
         _, peaks["stage1"] = run_cls_cli(torch, base + [
             "--output-dir", str(s1), "--bn-groups", "4", "--lr", "0.2",
             "--epochs", "1", "--cosine_scheduler", "--reduction", "mean",
-            "--mixup", "0.2", "--momentum", "0.9", "--wd", "1e-4"],
-            recs["stage1"])
+            "--mixup", "0.2", "--auto-augment", "imagenet", "--momentum",
+            "0.9", "--wd", "1e-4"], recs["stage1"])
         recs["stage2"] = ClsRecorder(torch)
         _, peaks["stage2"] = run_cls_cli(torch, base + [
             "--output-dir", str(s2), "--bn-groups", "4", "--lr", "0.00002",
             "--epochs", "1", "--reduction", "mean", "--mixup", "0.2",
-            "--load_from", str(s1 / "checkpoints"), "--classif", "iif",
-            "--decoup", "--iif", "smooth"], recs["stage2"])
+            "--auto-augment", "imagenet", "--load_from",
+            str(s1 / "checkpoints"), "--classif", "iif", "--decoup",
+            "--iif", "smooth"], recs["stage2"])
     recs["post"] = ClsRecorder(torch)
     post_acc, peaks["post"] = run_cls_cli(torch, base + [
         "--output-dir", str(root / "post"), "--load_from",
@@ -2741,6 +2770,9 @@ def classification_lt_phase(torch, np, tmp):
     check(changed > 0, "the post-hoc IIF evaluation's predictions differ "
           "from the plain CE evaluation's")
     check(not any(launches.values()), f"no K1-K4 launch: {launches}")
+    check(len(drawn) == 2 * LT_STEPS, f"an ImageNet sub-policy drawn each "
+          f"step of both stages: {drawn}")
+    log("ImageNet policy sub-policy by step, stage 1 then 2", drawn)
     stages = {k: recs[k].summary() for k in ("stage1", "stage2")}
     return {"train_images": int(counts.sum()), "counts_max_min":
             [int(counts.max()), int(counts.min())], "pool": LT_POOL,
@@ -2749,7 +2781,409 @@ def classification_lt_phase(torch, np, tmp):
             "post_many_median_low": recs["post"].shots[0],
             "post_eval_img_per_s": post["count"] / recs["post"].evals[0][0],
             "predictions_changed_by_iif": changed, "peak_gib": peaks,
-            "trunk_tensors_equal": len(trunk), "launches": launches}
+            "trunk_tensors_equal": len(trunk), "sub_policies": drawn,
+            "launches": launches}
+
+
+# ------------------------------------------------- augmentation policies
+CARD = "cuda"                      # the new phases' device
+AUG_SIZES = ((256, 224), (128, 32))  # (batch, side): ImageNet-LT, CIFAR
+AUG_LEVELS = (0, 4, 9)
+AUG_TIMED = 20                     # batches timed for each policy
+AUG_TOL = 2e-6                     # card against CPU where sums reorder
+# the ops whose card output equals the CPU's bit for bit: elementwise in
+# one order, integer grids, exact min / max
+AUG_EXACT = ("color", "posterize", "solarize", "brightness", "autocontrast",
+             "equalize", "invert", "identity")
+# a composition (a policy, a branch, a pipeline): a warp's source point on
+# the edge of the image within rounding turns a pixel grey on one device
+# only, and a truncation to the 256-level grid (equalize, posterize) can
+# land one level apart; each such element is counted, and their shares
+# held below these
+AUG_COMPOSED_OVER_TOL = 1e-3
+AUG_COMPOSED_OVER_GREY = 1e-4
+
+
+def aug_images(torch, np, b, side, seed):
+    """A seeded (b, side, side, 3) uint8 batch on the card and its floats
+    in [0, 1] (k / 255)."""
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, 256, (b, 1, 1, 3))
+    u8 = np.clip(base + rng.randint(-60, 61, (b, side, side, 3)), 0, 255)
+    u8 = torch.from_numpy(u8.astype(np.uint8)).to(CARD)
+    from iif_torch.data.augment import to_float
+
+    return u8, to_float(u8)
+
+
+def aug_error(torch, got, want, mask=None):
+    """max |card - CPU| over the pixels outside ``mask`` (B, H, W), the
+    pixels in ``mask`` that differ by more than AUG_TOL (``excluded``),
+    and the elements beyond AUG_TOL and beyond one grey level."""
+    d = (got.detach().cpu().float() - want.float()).abs()
+    excluded = 0
+    if mask is not None:
+        mask = mask.cpu()
+        excluded = int(((d > AUG_TOL).any(-1) & mask).sum())
+        d = torch.where(mask[..., None], torch.zeros_like(d), d)
+    return {"max_abs_err": float(d.max()), "over_tol": int((d > AUG_TOL)
+                                                           .sum()),
+            "over_grey": int((d > 1 / 255 + AUG_TOL).sum()),
+            "excluded": excluded, "elements": d.numel()}
+
+
+def to_cpu(torch, draw):
+    """A draw (nested dicts and lists of tensors) on the CPU."""
+    if isinstance(draw, dict):
+        return {k: to_cpu(torch, v) for k, v in draw.items()}
+    if isinstance(draw, list):
+        return [to_cpu(torch, v) for v in draw]
+    return draw.cpu() if isinstance(draw, torch.Tensor) else draw
+
+
+def hold_composed(torch, what, got, want):
+    err = aug_error(torch, got, want)
+    check(err["over_tol"] <= AUG_COMPOSED_OVER_TOL * err["elements"]
+          and err["over_grey"] <= AUG_COMPOSED_OVER_GREY * err["elements"],
+          f"{what}: card equals CPU but for {err['over_tol']} of "
+          f"{err['elements']} elements ({err['over_grey']} past a grey "
+          "level)")
+    return err
+
+
+def augmentation_phase(torch, np):
+    """Every op of ``autoaugment.OPS`` at levels 0, 4 and 9, one drawn
+    sub-policy of each policy, RandAugment, each OneOf branch, cutout and
+    random erasing, on a b256 224x224 and a b128 32x32 batch on the card,
+    each held against the same function on the CPU on the same draws:
+    AUG_EXACT equal, the other ops within AUG_TOL (a warp outside the
+    pixels whose source point lies within 1e-4 of the image's edge,
+    counted), compositions within the shares above. Then ms a batch
+    (draw and apply, CUDA events, AUG_TIMED batches each with the
+    host's choice of that step) for each policy at both sizes. No K1-K4
+    launch."""
+    from iif_torch.data import augment as A
+    from iif_torch.data import autoaugment as P
+    from iif_torch.data import branch_augment as BA
+
+    reset_roi_launches()
+    out = {}
+    for b, side in AUG_SIZES:
+        u8, x = aug_images(torch, np, b, side, seed=side)
+        xc = x.cpu()
+        gen = torch.Generator(device=CARD).manual_seed(side)
+        ops = {}
+        for name, op in P.OPS.items():
+            for level in AUG_LEVELS:
+                sign = P.draw_signs(gen, b, CARD)
+                got = op(x, level, sign)
+                want = op(xc, level, sign.cpu())
+                mask = None
+                if name in P.WARPS:
+                    mask = P.near_boundary(P.warp_matrix(
+                        name, side, side, level, sign), side, side)
+                err = aug_error(torch, got, want, mask)
+                exact = name in AUG_EXACT
+                check(err["max_abs_err"] <= (0.0 if exact else AUG_TOL),
+                      f"{name} level {level} at b{b} {side}: card "
+                      f"{'equal to' if exact else 'within ' + str(AUG_TOL)}"
+                      f" the CPU ({err['max_abs_err']})")
+                ops.setdefault(name, []).append(err)
+        composed = {}
+        for key, policy in P.POLICIES.items():
+            draw = P.draw_policy(gen, b, policy, CARD)
+            composed[f"policy_{key}"] = dict(
+                index=draw["index"], **hold_composed(
+                    torch, f"{key} policy sub-policy {draw['index']}",
+                    P.apply_policy(x, draw, policy),
+                    P.apply_policy(xc, to_cpu(torch, draw), policy)))
+        draw = P.draw_randaugment(gen, b, CARD)
+        composed["randaugment"] = dict(
+            ops=[P.RANDAUG_OPS[d["index"]] for d in draw["ops"]],
+            **hold_composed(torch, "randaugment", P.randaugment(x, draw),
+                            P.randaugment(xc, to_cpu(torch, draw))))
+        for i in range(BA.N_BRANCHES):
+            draw = BA.draw_one_of(gen, b, side, side, CARD, index=i)
+            composed[f"oneof_{i}"] = hold_composed(
+                torch, f"OneOf branch {i}", BA.one_of_augment(x, draw),
+                BA.one_of_augment(xc, to_cpu(torch, draw)))
+        draw = A.draw_cutout(gen, b, side, side, CARD)
+        composed["cutout"] = hold_composed(
+            torch, "cutout", A.cutout(x, draw, 16),
+            A.cutout(xc, to_cpu(torch, draw), 16))
+        draw = A.draw_random_erasing(gen, x.shape, x.dtype, CARD, 0.5)
+        composed["random_erasing"] = hold_composed(
+            torch, "random erasing", A.random_erasing(x, draw),
+            A.random_erasing(xc, to_cpu(torch, draw)))
+        ms = {}
+        for key in ("cifar", "imagenet", "randaugment", "oneof", "jitter"):
+            def one(step, key=key):
+                g = torch.Generator(device=CARD).manual_seed(
+                    (7 << 32) | step)
+                if key == "randaugment":
+                    return P.randaugment(x, P.draw_randaugment(g, b, CARD))
+                if key == "oneof":
+                    return BA.one_of_augment(x, BA.draw_one_of(
+                        g, b, side, side, CARD))
+                if key == "jitter":
+                    return A.color_jitter(x, A.draw_color_jitter(
+                        g, b, CARD))
+                pol = P.POLICIES[key]
+                return P.apply_policy(x, P.draw_policy(g, b, pol, CARD),
+                                      pol)
+
+            one(0)
+            times = []
+            for step in range(1, AUG_TIMED + 1):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                one(step)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            ms[key] = spread(times)
+        out[f"b{b}_{side}"] = {
+            "ops_max_abs_err_by_level": {
+                k: [e["max_abs_err"] for e in v] for k, v in ops.items()},
+            "warp_pixels_excluded": sum(e["excluded"] for v in ops.values()
+                                        for e in v),
+            "composed_max_abs_err_over_tol_over_grey": {
+                k: [v["max_abs_err"], v["over_tol"], v["over_grey"]]
+                + ([v["index"]] if "index" in v else v.get("ops", []))
+                for k, v in composed.items()},
+            "elements": x.numel(),
+            "ms_a_batch": {k: {"median": v["median"], "min": v["min"],
+                               "max": v["max"]} for k, v in ms.items()}}
+    launches = roi_launches()
+    check(not any(launches.values()), f"no K1-K4 launch: {launches}")
+    out["launches"] = launches
+    return out
+
+
+# ------------------------------------------------- classifier families
+FAMILIES = ("resnet18", "resnet34", "resnext50_32x4d", "resnext101_32x8d",
+            "wide_resnet50_2", "wide_resnet101_2", "se_resnext50_32x4d")
+FAMILY_BATCH = 64
+FAMILY_STEPS = 3                   # timed steps after the first
+
+
+def family_phase(torch, np):
+    """One b64 bf16 SGD step of each classifier the port added, at full
+    depth and width, 224x224, 1000 classes, through
+    ``ClassificationTrainer`` (the ImageNet augmentation, CE) from seeded
+    fresh weights, then FAMILY_STEPS timed steps: every loss finite,
+    every parameter that got a gradient moved; ms/step (CUDA events) and
+    peak memory. No K1-K4 launch."""
+    from iif_torch.data import augment as A
+    from iif_torch.data.lt_dataset import IMAGENET_MEAN, IMAGENET_STD
+    from iif_torch.engine.classification import ClassificationTrainer
+    from iif_torch.losses import get_criterion
+    from iif_torch.models.factory import build_classifier
+    from iif_torch.models.init import classifier_fresh_init_
+
+    reset_roi_launches()
+    rng = np.random.RandomState(3)
+    batch = {"image": rng.randint(0, 256, (FAMILY_BATCH, 224, 224, 3))
+             .astype(np.uint8),
+             "label": rng.randint(0, 1000, FAMILY_BATCH).astype(np.int64)}
+
+    def aug(g, x):
+        b, h, w, _ = x.shape
+        return A.imagenet_train_augment(
+            x, A.draw_imagenet(g, b, h, w, x.device), IMAGENET_MEAN,
+            IMAGENET_STD)
+
+    out = {}
+    for name in FAMILIES:
+        model = build_classifier(name, 1000, compute_dtype=torch.bfloat16)
+        classifier_fresh_init_(model, torch.Generator().manual_seed(0))
+        torch.cuda.reset_peak_memory_stats()
+        trainer = ClassificationTrainer(
+            model, get_criterion("ce", [1] * 1000), lambda s: 0.1, aug,
+            None, 1000, compute_dtype=torch.bfloat16, device=CARD)
+        state = trainer.init_state()
+        before = {k: v.detach().clone() for k, v in
+                  trainer.model.named_parameters()}
+        losses, times = [], []
+        for step in range(FAMILY_STEPS + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = trainer.train_step(state, batch)
+            end.record()
+            losses.append(m["loss"])
+            times.append((start, end))
+        torch.cuda.synchronize()
+        losses = [float(v) for v in torch.stack(losses).tolist()]
+        check(all(math.isfinite(v) for v in losses),
+              f"{name}: every loss finite {losses}")
+        moved = [k for k, p in trainer.model.named_parameters()
+                 if not torch.equal(p.detach(), before[k])]
+        n_params = len(before)
+        check(len(moved) == n_params,
+              f"{name}: every parameter moved ({len(moved)} of {n_params})")
+        ms = [a.elapsed_time(b) for a, b in times]
+        out[name] = {"params_m": sum(p.numel() for p in before.values())
+                     / 1e6, "first_step_ms": ms[0],
+                     "step_ms": spread(ms[1:]), "img_per_s": FAMILY_BATCH
+                     / statistics.median(ms[1:]) * 1e3,
+                     "loss_first_last": [losses[0], losses[-1]],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del trainer, model, state, before
+        torch.cuda.empty_cache()
+    launches = roi_launches()
+    check(not any(launches.values()), f"no K1-K4 launch: {launches}")
+    out["launches"] = launches
+    return out
+
+
+# ------------------------------------------------------------------ QAT
+QAT_EPOCHS = 3
+
+
+def qat_phase(torch, np, root):
+    """``BASELINE.json`` configs[3]'s shape: ``python -m iif_torch.cli.
+    train_quantization --dset_name imagenet_lt --model resnet50 -b 256
+    --epochs 3 --qat-freeze-bn 1 --qat-freeze-observer 2`` in the process
+    on phase 12's seeded ImageNet-LT lists under ``root``, each epoch cut
+    to LT_STEPS steps; then ``--post-training-quantize --load_from`` its
+    checkpoint. Checks: the scales frozen at epoch 2 equal
+    ``observe_scales`` of the weights at that moment, bit for bit; every
+    BatchNorm buffer is bit-equal across every step from epoch 1 on;
+    ``dequantize_tree(quantize_tree(p))`` equals ``fake_quant_params(p)``
+    bit for bit; ``evaluate_quantized``'s Acc@1 and predictions equal
+    ``evaluate``'s on a copy of the model holding the dequantized
+    weights; the post-training run prints its Acc@1; every loss finite;
+    no K1-K4 launch."""
+    import copy
+    import io
+
+    from iif_torch.cli import train_quantization as tq
+    from iif_torch.data.loader import Loader, eval_batches
+    from iif_torch.engine.classification import ClassificationTrainer
+    from iif_torch.quant import (
+        dequantize_tree,
+        fake_quant_params,
+        observe_scales,
+        quantize_tree,
+    )
+
+    base = ["--dset_name", "imagenet_lt", "--data-path", str(root),
+            "--train-txt", str(root / "ImageNet_LT_train.txt"),
+            "--eval-txt", str(root / "ImageNet_LT_test.txt"),
+            "--model", "resnet50", "-b", "256", "--print-freq", "1"]
+    seen = {"trainer": None, "epochs": [], "bn_equal": [], "scales": None}
+    fns = {}
+
+    def bn_buffers(model):
+        return [b.detach().clone() for n, b in model.named_buffers()
+                if "running" in n or "num_batches" in n]
+
+    def train_one_epoch(trainer, state, loader, epoch, **kw):
+        seen["trainer"] = trainer
+        seen["epochs"].append(epoch)
+        if epoch == trainer.qat.freeze_observer_epoch:
+            with torch.no_grad():
+                seen["scales"] = observe_scales(trainer.model)
+        seen["epoch"] = epoch
+        seen["bn"] = bn_buffers(trainer.model)
+        out = fns["epoch"](trainer, state, loader, epoch, **kw)
+        if epoch == trainer.qat.freeze_observer_epoch:
+            seen["frozen"] = {k: v.clone() for k, v in
+                              trainer.frozen_scales.items()}
+        return out
+
+    def train_step(trainer, state, batch, mix=None, **kw):
+        out = fns["step"](trainer, state, batch, mix, **kw)
+        if seen["epoch"] >= trainer.qat.freeze_bn_epoch:
+            now = bn_buffers(trainer.model)
+            seen["bn_equal"].append(all(
+                torch.equal(a, b) for a, b in zip(seen["bn"], now)))
+        return out
+
+    rec = ClsRecorder(torch, profile_step=None)
+    real_len = Loader.__len__
+    reset_roi_launches()
+    work = root / "qat"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched((Loader, "__len__",
+                  lambda self: min(real_len(self), LT_STEPS)),
+                 *rec.patches()):
+        # around the recorder's own wrappers
+        fns["epoch"] = ClassificationTrainer.train_one_epoch
+        fns["step"] = ClassificationTrainer.train_step
+        with patched((ClassificationTrainer, "train_one_epoch",
+                      train_one_epoch),
+                     (ClassificationTrainer, "train_step", train_step)):
+            args = tq.get_args_parser().parse_args(base + [
+                "--output-dir", str(work), "--epochs", str(QAT_EPOCHS),
+                "--qat-freeze-bn", "1", "--qat-freeze-observer", "2"])
+            best = tq.main(args)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer = seen["trainer"]
+    check(seen["epochs"] == list(range(QAT_EPOCHS)),
+          f"QAT trained epochs {seen['epochs']}")
+    check(seen["scales"] is not None and set(seen["scales"]) == set(
+        seen["frozen"]) and all(torch.equal(seen["scales"][k],
+                                            seen["frozen"][k])
+                                for k in seen["scales"]),
+          f"the {len(seen['frozen'])} scales frozen at epoch 2 equal "
+          "observe_scales of the weights then")
+    check(len(seen["bn_equal"]) == (QAT_EPOCHS - 1) * LT_STEPS
+          and all(seen["bn_equal"]),
+          f"every BN buffer bit-equal over the {len(seen['bn_equal'])} "
+          "steps from epoch 1 on")
+    model, frozen = trainer.model, trainer.frozen_scales
+    with torch.no_grad():
+        q, s = quantize_tree(model, scales=frozen)
+        deq = dequantize_tree(model, q, s)
+        fq = fake_quant_params(model, scales=frozen)
+    int8 = [k for k, v in q.items() if v.dtype == torch.int8]
+    check(len(int8) == len(frozen) and all(torch.equal(deq[k], fq[k])
+                                           for k in fq),
+          f"dequantize_tree(quantize_tree(p)) equals fake_quant_params(p) "
+          f"bit for bit ({len(int8)} int8 weights)")
+    from iif_torch.cli import train as cli
+
+    d = cli.build_data(args)
+
+    def batches():
+        return eval_batches(d["eval_data"], d["eval_targets"], 256)
+
+    res_q = trainer.evaluate_quantized(batches())
+    copy_model = copy.deepcopy(model)
+    with torch.no_grad():
+        for k, p in copy_model.named_parameters():
+            p.copy_(deq[k])
+    with patched((trainer, "model", copy_model)):
+        res_d = trainer.evaluate(batches())
+    check(res_q["acc1"] == res_d["acc1"] and np.array_equal(
+        res_q["preds"], res_d["preds"]),
+        f"evaluate_quantized Acc@1 {res_q['acc1']} equals evaluate on the "
+        f"dequantized model {res_d['acc1']}, every prediction")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ptq_acc = tq.main(tq.get_args_parser().parse_args(base + [
+            "--output-dir", str(root / "ptq"), "--post-training-quantize",
+            "--load_from", str(work / "checkpoints")]))
+    ptq_s = time.perf_counter() - t0
+    printed = [ln for ln in buf.getvalue().splitlines() if "Acc@1" in ln]
+    sys.stdout.write(buf.getvalue()[-2000:])
+    check(len(printed) == 1 and f"{ptq_acc:.3f}" in printed[0],
+          f"--post-training-quantize prints its Acc@1 {ptq_acc}")
+    launches = roi_launches()
+    check(not any(launches.values()), f"no K1-K4 launch: {launches}")
+    return {"epochs": QAT_EPOCHS, "steps_an_epoch": LT_STEPS,
+            **rec.summary(), "best_acc1": best,
+            "quantized_weights": len(int8),
+            "evaluate_quantized_acc1": res_q["acc1"],
+            "dequantized_acc1": res_d["acc1"], "ptq_acc1": ptq_acc,
+            "ptq_printed": printed[0], "ptq_s": ptq_s, "train_s": train_s,
+            "peak_gib": peak, "launches": launches}
 
 
 def main() -> int:
@@ -2837,6 +3271,15 @@ def main() -> int:
         cls_lt = classification_lt_phase(torch, np, Path(tmp))
         log("classification ImageNet-LT shape", json.dumps(cls_lt), "card",
             card)
+        qat = qat_phase(torch, np, Path(tmp) / "lt")
+        log("QAT ImageNet-LT shape", json.dumps(qat), "card", card)
+        log("QAT ResNet-50 ms/step", qat["step_ms"]["median"],
+            "against phase 12 stage 1 (SE-ResNet-50, the policy, mixup)",
+            cls_lt["stage1"]["step_ms"]["median"], "card", card)
+    aug = augmentation_phase(torch, np)
+    log("augmentation", json.dumps(aug), "card", card)
+    families = family_phase(torch, np)
+    log("classifier families", json.dumps(families), "card", card)
     eval_k1 = {}
     for o, rois in ((7, eval_rois7), (14, eval_rois14)):
         for dt in (torch.float32, torch.bfloat16):
@@ -2991,6 +3434,10 @@ def main() -> int:
             cls_cifar["launches"][KERNEL_OF[row["replaces"]]]
         row["launches_by_path"]["classification_imagenet_lt"] = \
             cls_lt["launches"][KERNEL_OF[row["replaces"]]]
+        for path, res in (("qat", qat), ("augmentation", aug),
+                          ("classifier_families", families)):
+            row["launches_by_path"][path] = \
+                res["launches"][KERNEL_OF[row["replaces"]]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

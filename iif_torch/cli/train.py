@@ -23,13 +23,21 @@ directory of them) then loads its model weights over everything.
 ``--test-only`` evaluates and prints Many / Median / Low;
 ``--record-result`` appends the best Acc@1 to ``results.csv``.
 
+``--auto-augment`` takes the policy as JAX's CLI does (``cifar`` or
+``oneof`` on the CIFAR datasets, ``imagenet``, ``randaugment`` or
+``oneof`` on the others; a value that does not fit the dataset leaves the
+plain pipeline, as in JAX); ``--random-erase P`` adds random erasing
+with probability P; ``--opt`` is ``sgd``, ``nesterov``, ``rmsprop`` or
+``adamw``. ``main(args, qat=...)`` trains with QAT
+(``iif_torch/cli/train_quantization.py``).
+
 Checkpoints are ``<output-dir>/checkpoints/epoch_{n}.pth`` (``n`` the
 epochs finished, ``latest.pth`` the newest) holding the model, the
 optimizer, the scheduler, the epoch and the args; the JAX package writes
 orbax directories instead. Unported flags raise ``NotImplementedError``
 naming the flag: ``--world-size`` other than 1, ``--dist-url`` other than
-``env://``, ``--opt`` other than ``sgd``, ``--pretrained``,
-``--auto-augment`` and ``--random-erase``.
+``env://`` and ``--pretrained`` (which the JAX CLI defines and never
+reads).
 """
 from __future__ import annotations
 
@@ -115,7 +123,8 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
     parser.add_argument("--epochs", default=400, type=int)
     parser.add_argument("-j", "--workers", default=4, type=int,
                         help="batches prefetched by the loader's thread")
-    parser.add_argument("--opt", default="sgd", type=str)
+    parser.add_argument("--opt", default="sgd", type=str,
+                        help="sgd|nesterov|rmsprop|adamw")
     parser.add_argument("--lr", default=0.1, type=float)
     parser.add_argument("--momentum", default=0.9, type=float)
     parser.add_argument("--wd", "--weight-decay", default=1e-4, type=float,
@@ -127,9 +136,9 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
     parser.add_argument("--decoup", action="store_true",
                         help="freeze all but the classifier head")
     parser.add_argument("--auto-augment", default=None,
-                        help="not ported")
+                        help="cifar|imagenet|randaugment|oneof")
     parser.add_argument("--random-erase", default=0.0, type=float,
-                        help="not ported")
+                        help="random erasing probability")
     parser.add_argument("--print-freq", default=100, type=int)
     parser.add_argument("--output-dir", default=".", type=str)
     parser.add_argument("--resume", default="", type=str)
@@ -157,10 +166,7 @@ def refuse_unported(args) -> None:
     unported = {
         "--world-size other than 1": args.world_size != 1,
         "--dist-url other than env://": args.dist_url != "env://",
-        f"--opt {args.opt}": args.opt.lower() != "sgd",
         "--pretrained": bool(args.pretrained),
-        f"--auto-augment {args.auto_augment}": bool(args.auto_augment),
-        "--random-erase": args.random_erase > 0,
     }
     for flag, bad in unported.items():
         if bad:
@@ -222,13 +228,17 @@ def record_result(result: float, args, path: str) -> None:
 
 def transforms(args, kind: str):
     """(train_augment(generator, images_u8), eval_transform(images_u8))
-    of the dataset's kind."""
+    of the dataset's kind, with ``--auto-augment`` and
+    ``--random-erase``."""
+    policy, erase = args.auto_augment, args.random_erase
     if kind == "cifar":
         mean, std = CIFAR10_MEAN, CIFAR10_STD
 
         def train_aug(gen, x):
+            b, h, w, _ = x.shape
             return augment.cifar_train_augment(
-                x, augment.draw_cifar(gen, x.shape[0], x.device), mean, std)
+                x, augment.draw_cifar(gen, b, x.device, policy, erase, h, w),
+                mean, std)
 
         return train_aug, lambda x: augment.cifar_eval_transform(x, mean,
                                                                  std)
@@ -240,7 +250,8 @@ def transforms(args, kind: str):
     def train_aug(gen, x):
         b, h, w, _ = x.shape
         return augment.imagenet_train_augment(
-            x, augment.draw_imagenet(gen, b, h, w, x.device, hue), mean, std)
+            x, augment.draw_imagenet(gen, b, h, w, x.device, hue, policy,
+                                     erase), mean, std)
 
     return train_aug, lambda x: augment.imagenet_eval_transform(x, mean, std)
 
@@ -256,7 +267,10 @@ def checkpoint_path(path: str) -> str:
     return path
 
 
-def main(args):
+def main(args, qat=None):
+    """Train (or with ``--test-only`` evaluate) as ``args`` say; ``qat``
+    (an ``iif_torch.quant.QatConfig``) trains with fake-quantized
+    weights and evaluates ``--test-only`` on them."""
     refuse_unported(args)
     device = resolve_device(args.device)
     if args.output_dir:
@@ -301,7 +315,7 @@ def main(args):
         model, criterion, schedule, train_aug, eval_tf, num_classes,
         mixup_alpha=args.mixup, compute_dtype=compute_dtype, seed=args.seed,
         opt=args.opt, momentum=args.momentum,
-        weight_decay=args.weight_decay, device=device)
+        weight_decay=args.weight_decay, device=device, qat=qat)
     if args.decoup:
         freeze_all_but_head(trainer.model)
         reinit_classifier_head(trainer.model, seed=args.seed)
@@ -317,8 +331,11 @@ def main(args):
         load_weights(checkpoint_path(args.load_from), trainer.model)
 
     def _eval():
-        return trainer.evaluate(eval_batches(
-            d["eval_data"], d["eval_targets"], args.batch_size))
+        batches = eval_batches(d["eval_data"], d["eval_targets"],
+                               args.batch_size)
+        if qat is not None and qat.enabled:
+            return trainer.evaluate_quantized(batches)
+        return trainer.evaluate(batches)
 
     if args.test_only:
         res = _eval()
@@ -339,7 +356,8 @@ def main(args):
         state, _ = trainer.train_one_epoch(state, loader, epoch,
                                            print_freq=args.print_freq,
                                            log_writer=log_writer)
-        res = _eval()
+        res = trainer.evaluate(eval_batches(
+            d["eval_data"], d["eval_targets"], args.batch_size))
         if log_writer is not None:
             log_writer.write({"mode": "val", "epoch": epoch + 1,
                               "acc1": res["acc1"], "acc5": res["acc5"]},

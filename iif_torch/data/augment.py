@@ -12,19 +12,29 @@ compute_weight_mat``), not ``F.interpolate``. ``color_jitter`` runs
 brightness, contrast (against the mean grey of the whole image),
 saturation, then the YIQ hue rotation, and clips only at the end.
 
-Not ported: the policies (``--auto-augment`` cifar / imagenet /
-randaugment / oneof), cutout and random erasing; the training CLI refuses
-their flags.
+``cutout`` and ``random_erasing`` follow JAX's (a clipped square of side
+``length`` about a uniform pixel; torchvision's RandomErasing with its
+area, log-ratio and truncations, normal noise in the images' dtype). The
+pipelines take ``--auto-augment`` as JAX's CLI does: on CIFAR ``cifar``
+adds the CIFAR-10 policy and cutout 16 after crop and flip, ``oneof``
+replaces crop and flip by the ten-branch pipeline
+(``iif_torch/data/branch_augment.py``); on ImageNet ``imagenet``,
+``randaugment`` and ``oneof`` replace ColorJitter
+(``iif_torch/data/autoaugment.py``); any other value leaves the plain
+pipeline, as JAX does. Random erasing comes after normalisation. The
+draw's keys say which ops the apply runs.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-Draw = Dict[str, torch.Tensor]
+from iif_torch.data import autoaugment as policies
+
+Draw = Dict[str, object]
 
 
 def to_float(images: torch.Tensor) -> torch.Tensor:
@@ -76,6 +86,81 @@ def random_crop(images: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
     cols = ox.to(dev).long()[:, None] + torch.arange(w, device=dev)
     bi = torch.arange(b, device=dev)[:, None, None]
     return padded[bi, rows[:, :, None], cols[:, None, :]]
+
+
+# ---------------------------------------------------- cutout, erasing
+def draw_cutout(generator: torch.Generator, b: int, h: int, w: int,
+                device, n_holes: int = 1) -> Draw:
+    """Each hole's centre: (n_holes, B) rows ``cy`` in [0, h) and
+    columns ``cx`` in [0, w)."""
+    cy, cx = [], []
+    for _ in range(n_holes):
+        cy.append(torch.randint(0, h, (b,), generator=generator,
+                                device=device))
+        cx.append(torch.randint(0, w, (b,), generator=generator,
+                                device=device))
+    return {"cy": torch.stack(cy), "cx": torch.stack(cx)}
+
+
+def cutout(images: torch.Tensor, draw: Draw, length: int = 16,
+           fill: float = 0.0) -> torch.Tensor:
+    """Cutout: ``fill`` where both offsets from a hole's centre are at
+    most ``length // 2`` (the square clipped by the image), hole by
+    hole."""
+    _, h, w, _ = images.shape
+    dev = images.device
+    yy = torch.arange(h, device=dev)[None, :, None]
+    xx = torch.arange(w, device=dev)[None, None, :]
+    fill_t = torch.full((), fill, dtype=images.dtype, device=dev)
+    out = images
+    for cy, cx in zip(draw["cy"].to(dev), draw["cx"].to(dev)):
+        mask = (((yy - cy[:, None, None]).abs() <= length // 2)
+                & ((xx - cx[:, None, None]).abs() <= length // 2))
+        out = torch.where(mask[..., None], fill_t, out)
+    return out
+
+
+def draw_random_erasing(generator: torch.Generator, shape, dtype, device,
+                        prob: float = 0.5,
+                        scale: Tuple[float, float] = (0.02, 0.33),
+                        ratio: Tuple[float, float] = (0.3, 3.3)) -> Draw:
+    """Per image: whether to erase (``prob``), the area's share of the
+    image in ``scale``, the log of the aspect ratio, the two offsets'
+    uniforms; and normal noise of ``shape`` in ``dtype``."""
+    b = shape[0]
+    return {
+        "apply": torch.rand(b, generator=generator, device=device) < prob,
+        "scale": _uniform(generator, (b,), scale[0], scale[1], device),
+        "log_r": _uniform(generator, (b,), math.log(ratio[0]),
+                          math.log(ratio[1]), device),
+        "uy": torch.rand(b, generator=generator, device=device),
+        "ux": torch.rand(b, generator=generator, device=device),
+        "noise": torch.randn(shape, generator=generator, dtype=dtype,
+                             device=device)}
+
+
+def random_erasing(images: torch.Tensor, draw: Draw) -> torch.Tensor:
+    """torchvision RandomErasing as JAX writes it: the rectangle of side
+    ``sqrt(area * r)`` x ``sqrt(area / r)`` (truncated, clipped to [1,
+    side]) at offsets ``(u * (side - extent))`` truncated, filled with the
+    noise, on the images drawn to erase."""
+    b, h, w, _ = images.shape
+    dev = images.device
+    d = {k: v.to(dev) for k, v in draw.items()}
+    area = (h * w) * d["scale"].float()
+    # f64 exp rounded to f32: the card and the CPU truncate the same sides
+    r = torch.exp(d["log_r"].double()).float()
+    eh = torch.clamp(torch.sqrt(area * r).to(torch.int32), 1, h)
+    ew = torch.clamp(torch.sqrt(area / r).to(torch.int32), 1, w)
+    cy = (d["uy"].float() * (h - eh).float()).to(torch.int32)
+    cx = (d["ux"].float() * (w - ew).float()).to(torch.int32)
+    yy = torch.arange(h, device=dev)[None, :, None]
+    xx = torch.arange(w, device=dev)[None, None, :]
+    inside = ((yy >= cy[:, None, None]) & (yy < (cy + eh)[:, None, None])
+              & (xx >= cx[:, None, None]) & (xx < (cx + ew)[:, None, None]))
+    inside = inside & d["apply"].bool()[:, None, None]
+    return torch.where(inside[..., None], d["noise"].to(images.dtype),
+                       images)
 
 
 # ------------------------------------------------------ resized crop
@@ -195,16 +280,52 @@ def color_jitter(images: torch.Tensor, draw: Draw) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ pipelines
-def draw_cifar(generator: torch.Generator, b: int, device) -> Draw:
-    oy, ox = draw_crop(generator, b, 4, device)
-    return {"oy": oy, "ox": ox, "flip": draw_hflip(generator, b, device)}
+def draw_cifar(generator: torch.Generator, b: int, device,
+               auto_augment: Optional[str] = None,
+               random_erase: float = 0.0, h: int = 32, w: int = 32,
+               dtype=torch.float32) -> Draw:
+    """The CIFAR pipeline's draws: crop and flip, with ``auto_augment``
+    ``"cifar"`` the policy and cutout's hole, with ``"oneof"`` the
+    ten-branch pipeline's instead; random erasing's when
+    ``random_erase`` > 0."""
+    out: Draw = {}
+    if auto_augment == "oneof":
+        from iif_torch.data.branch_augment import draw_one_of
+
+        out["oneof"] = draw_one_of(generator, b, h, w, device)
+    else:
+        oy, ox = draw_crop(generator, b, 4, device)
+        out.update(oy=oy, ox=ox, flip=draw_hflip(generator, b, device))
+        if auto_augment == "cifar":
+            out["policy"] = policies.draw_policy(
+                generator, b, policies.CIFAR10_POLICY, device)
+            out["cutout"] = draw_cutout(generator, b, h, w, device)
+    if random_erase > 0:
+        out["erase"] = draw_random_erasing(generator, (b, h, w, 3), dtype,
+                                           device, random_erase)
+    return out
 
 
 def cifar_train_augment(images_u8: torch.Tensor, draw: Draw, mean,
-                        std) -> torch.Tensor:
-    """RandomCrop(32, 4) + HFlip + Normalize."""
-    x = random_crop(to_float(images_u8), draw["oy"], draw["ox"], 4)
-    return normalize(random_hflip(x, draw["flip"]), mean, std)
+                        std, cutout_len: int = 16) -> torch.Tensor:
+    """RandomCrop(32, 4) + HFlip [+ CIFAR-10 policy + Cutout] + Normalize
+    [+ RandomErasing]; with a ``"oneof"`` draw the ten-branch pipeline in
+    place of crop and flip."""
+    x = to_float(images_u8)
+    if "oneof" in draw:
+        from iif_torch.data.branch_augment import one_of_augment
+
+        x = one_of_augment(x, draw["oneof"])
+    else:
+        x = random_crop(x, draw["oy"], draw["ox"], 4)
+        x = random_hflip(x, draw["flip"])
+        if "policy" in draw:
+            x = policies.cifar10_policy_augment(x, draw["policy"])
+            x = cutout(x, draw["cutout"], length=cutout_len)
+    x = normalize(x, mean, std)
+    if "erase" in draw:
+        x = random_erasing(x, draw["erase"])
+    return x
 
 
 def cifar_eval_transform(images_u8: torch.Tensor, mean,
@@ -213,20 +334,55 @@ def cifar_eval_transform(images_u8: torch.Tensor, mean,
 
 
 def draw_imagenet(generator: torch.Generator, b: int, h: int, w: int,
-                  device, hue: float = 0.0) -> Draw:
-    return {"crop": draw_resized_crop(generator, b, h, w, device),
-            "flip": draw_hflip(generator, b, device),
-            "jitter": draw_color_jitter(generator, b, device, 0.4, 0.4,
-                                        0.4, hue)}
+                  device, hue: float = 0.0,
+                  auto_augment: Optional[str] = None,
+                  random_erase: float = 0.0, size: int = 224,
+                  dtype=torch.float32) -> Draw:
+    """The ImageNet pipeline's draws: the resized crop and the flip, then
+    ColorJitter's factors or, with ``auto_augment`` ``"imagenet"``,
+    ``"randaugment"`` or ``"oneof"``, that policy's; random erasing's when
+    ``random_erase`` > 0."""
+    out: Draw = {"crop": draw_resized_crop(generator, b, h, w, device),
+                 "flip": draw_hflip(generator, b, device)}
+    if auto_augment == "randaugment":
+        out["randaugment"] = policies.draw_randaugment(generator, b, device)
+    elif auto_augment == "imagenet":
+        out["policy"] = policies.draw_policy(
+            generator, b, policies.IMAGENET_POLICY, device)
+    elif auto_augment == "oneof":
+        from iif_torch.data.branch_augment import draw_one_of
+
+        out["oneof"] = draw_one_of(generator, b, size, size, device)
+    else:
+        out["jitter"] = draw_color_jitter(generator, b, device, 0.4, 0.4,
+                                          0.4, hue)
+    if random_erase > 0:
+        out["erase"] = draw_random_erasing(generator, (b, size, size, 3),
+                                           dtype, device, random_erase)
+    return out
 
 
 def imagenet_train_augment(images_u8: torch.Tensor, draw: Draw, mean, std,
                            size: int = 224) -> torch.Tensor:
     """RandomResizedCrop(size) + HFlip + ColorJitter(0.4, 0.4, 0.4, hue)
-    + Normalize (hue 0.25 for iNat18)."""
+    (hue 0.25 for iNat18) or the drawn policy + Normalize [+
+    RandomErasing]."""
     x = random_resized_crop(to_float(images_u8), draw["crop"], size)
-    x = color_jitter(random_hflip(x, draw["flip"]), draw["jitter"])
-    return normalize(x, mean, std)
+    x = random_hflip(x, draw["flip"])
+    if "randaugment" in draw:
+        x = policies.randaugment(x, draw["randaugment"])
+    elif "policy" in draw:
+        x = policies.imagenet_policy_augment(x, draw["policy"])
+    elif "oneof" in draw:
+        from iif_torch.data.branch_augment import one_of_augment
+
+        x = one_of_augment(x, draw["oneof"])
+    else:
+        x = color_jitter(x, draw["jitter"])
+    x = normalize(x, mean, std)
+    if "erase" in draw:
+        x = random_erasing(x, draw["erase"])
+    return x
 
 
 def imagenet_eval_transform(images_u8: torch.Tensor, mean, std,

@@ -1,12 +1,13 @@
 """Classification trainer: port of ``iif_tpu/engine/classification.py``
-(``ClassificationTrainer`` without QAT) on one card.
+(``ClassificationTrainer``, with its QAT hooks) on one card.
 
 A step: the uint8 batch to the device, the augmentation there (its draws
 and mixup's permutation from a ``torch.Generator`` seeded from ``(seed,
-step)``, mixup's lambda from a host ``RandomState`` seeded so), the
+step)``, mixup's lambda and a policy's choice for the batch from host
+``RandomState``s seeded so), the
 input in the compute dtype, optional mixup (f32, as in JAX), the forward
 with BatchNorm on the batch's statistics, the logits in f32, the
-criterion, the backward, SGD over the trainable parameters and the
+criterion, the backward, the optimizer over the trainable parameters and the
 schedule's next rate; metrics (loss, Acc@1, Acc@5 from a stable top-5,
 ties in index order as ``jax.lax.top_k``) stay on the device.
 ``train_one_epoch`` reads them back every ``SYNC_WINDOW`` steps and at
@@ -15,6 +16,16 @@ on its running statistics, applies the inference-time IIF (``logits *
 w``) for an IIF criterion only, and counts hits on the device; it returns
 the JAX package's dict (accuracies, per-class counts, ``preds`` and
 ``labels`` of the valid rows for ``shot_acc``).
+
+QAT (``qat``, an ``iif_torch.quant.QatConfig``): while ``quant_on`` the
+forward runs on fake-quantized weights (``torch.func.functional_call``;
+the gradient reaches the float weights straight through); from epoch
+``freeze_observer_epoch`` on the scales are the ones snapshotted once at
+its start (``frozen_scales``); from epoch ``freeze_bn_epoch`` on every
+BatchNorm runs on its running statistics and leaves them unchanged
+(flax's ``train=False``) while the rest of the step trains.
+``evaluate_quantized`` evaluates the fake-quantized weights, with the
+frozen scales once they exist.
 
 Images enter as (B, H, W, 3), as in JAX; the model takes the NCHW view of
 the NHWC batch (``channels_last`` memory). The step and the evaluation
@@ -35,6 +46,7 @@ from iif_torch.device import resolve_device
 from iif_torch.engine.schedules import build_optimizer
 from iif_torch.losses.mixup import mixup_batch, mixup_criterion, sample_mixup
 from iif_torch.ops.nms import top_k
+from iif_torch.quant import fake_quant_params, observe_scales
 from iif_torch.utils.metrics import MetricLogger, SmoothedValue
 
 SYNC_WINDOW = 4           # steps of metrics in flight before a read-back
@@ -62,7 +74,7 @@ class ClassificationTrainer:
                  compute_dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  opt: str = "sgd", momentum: float = 0.9,
                  weight_decay: float = 1e-4,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", qat=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.criterion = criterion.to(self.device)
@@ -74,6 +86,8 @@ class ClassificationTrainer:
         self.compute_dtype = compute_dtype
         self.seed = seed
         self.opt = (opt, momentum, weight_decay)
+        self.qat = qat
+        self.frozen_scales = None      # set at the observer-freeze epoch
 
     def init_state(self) -> TrainState:
         """The optimizer over the parameters that require a gradient, at
@@ -86,15 +100,33 @@ class ClassificationTrainer:
     def _images(self, batch: Dict[str, Any]) -> torch.Tensor:
         return torch.as_tensor(batch["image"]).to(self.device)
 
+    def _logits(self, x: torch.Tensor,
+                params: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """The model on NHWC ``x`` (its NCHW view), with ``params`` in
+        place of its parameters when given; f32."""
+        x = x.permute(0, 3, 1, 2)
+        if params is None:
+            return self.model(x).float()
+        return torch.func.functional_call(self.model, params, (x,)).float()
+
     def train_step(self, state: TrainState, batch: Dict[str, Any],
-                   mix: Optional[Tuple[Any, Any]] = None
+                   mix: Optional[Tuple[Any, Any]] = None, *,
+                   quant_on: bool = False, freeze_bn: bool = False
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One SGD step on ``batch`` ({image, label}); ``mix`` = (lam,
-        index) replaces mixup's draw. Updates the model and ``state`` in
-        place and returns them with the metrics (device tensors)."""
+        """One optimizer step on ``batch`` ({image, label}); ``mix`` =
+        (lam, index) replaces mixup's draw; ``quant_on`` runs the forward
+        on fake-quantized weights (``frozen_scales`` when set),
+        ``freeze_bn`` every BatchNorm on its running statistics. Updates
+        the model and ``state`` in place and returns them with the
+        metrics (device tensors)."""
         images = self._images(batch)
         y = torch.as_tensor(batch["label"]).to(self.device).long()
         self.model.train()
+        if freeze_bn:
+            for m in self.model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.train(False)
         generator = torch.Generator(device=self.device).manual_seed(
             ((self.seed & 0xFFFFFFFF) << 32) | (state.step & 0xFFFFFFFF))
         with record_function("augment"):
@@ -106,7 +138,12 @@ class ClassificationTrainer:
                     generator, x.shape[0], self.mixup_alpha)
                 x, y_a, y_b, lam = mixup_batch(x, y, lam, index)
         with record_function("forward"):
-            logits = self.model(x.permute(0, 3, 1, 2)).float()
+            params = None
+            if quant_on:
+                params = fake_quant_params(
+                    self.model, scales=self.frozen_scales,
+                    per_channel=self.qat.per_channel if self.qat else True)
+            logits = self._logits(x, params)
             if self.mixup_alpha is not None:
                 loss = mixup_criterion(self.criterion, logits, y_a, y_b, lam)
             else:
@@ -136,6 +173,12 @@ class ClassificationTrainer:
                                                fmt="{value:.1f}")
         loader.set_epoch(epoch)
         total = len(loader)
+        quant_on = bool(self.qat and self.qat.enabled)
+        freeze_bn = quant_on and epoch >= self.qat.freeze_bn_epoch
+        if quant_on and epoch >= self.qat.freeze_observer_epoch \
+                and self.frozen_scales is None:
+            with torch.no_grad():
+                self.frozen_scales = observe_scales(self.model)
 
         def sink(rec):
             if log_writer is not None:
@@ -165,7 +208,9 @@ class ClassificationTrainer:
                 sink=sink)):
             if clock[0] is None:
                 clock[0] = time.time()
-            state, metrics = self.train_step(state, batch)
+            state, metrics = self.train_step(state, batch,
+                                             quant_on=quant_on,
+                                             freeze_bn=freeze_bn)
             pending.append((metrics, int(batch["image"].shape[0])))
             if print_freq and (i % print_freq == 0 or i == total - 1):
                 absorb(len(pending))
@@ -176,10 +221,21 @@ class ClassificationTrainer:
         return state, logger
 
     @torch.no_grad()
-    def evaluate(self, batches: Iterable[Dict[str, Any]], print_fn=print
+    def evaluate_quantized(self, batches: Iterable[Dict[str, Any]],
+                           print_fn=print) -> Dict[str, Any]:
+        """``evaluate`` on the fake-quantized weights (the frozen scales
+        when set, else live ones): the converted int8 model's accuracy,
+        since fake-quant equals int8 dequantization."""
+        params = fake_quant_params(self.model, scales=self.frozen_scales)
+        return self.evaluate(batches, print_fn=print_fn, params=params)
+
+    @torch.no_grad()
+    def evaluate(self, batches: Iterable[Dict[str, Any]], print_fn=print,
+                 params: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Dict[str, Any]:
         """Accuracy over ``batches`` ({image, label, valid}) on the
-        running statistics."""
+        running statistics (with ``params`` in place of the model's
+        parameters when given)."""
         self.model.eval()
         c = self.num_classes
         counts = torch.zeros(3, dtype=torch.long, device=self.device)
@@ -190,7 +246,7 @@ class ClassificationTrainer:
             y = torch.as_tensor(batch["label"]).to(self.device).long()
             valid = torch.as_tensor(batch["valid"]).to(self.device).bool()
             x = self.eval_transform(images).to(self.compute_dtype)
-            logits = self.model(x.permute(0, 3, 1, 2)).float()
+            logits = self._logits(x, params)
             if getattr(self.criterion, "iif", False):
                 logits = self.criterion.transform(logits)
             _, top5 = top_k(logits, 5)

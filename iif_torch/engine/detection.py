@@ -198,7 +198,8 @@ def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
     MaskRCNN with the pipeline's ``mask_stride``, the step-decay schedule
     with warm-up, SGD), from fresh weights drawn as the JAX package's
     ``model.init`` draws them (``fresh_init_``, seeded; ``cls_init`` from
-    the config): the port loads no checkpoint for training yet. Raises
+    the config); ``cli/train_det.py`` then loads ``pretrained_backbone``,
+    ``--resume-from`` or ``--load-from`` over them. Raises
     ``NotImplementedError`` for what the port does not train with:
     gradient accumulation, gradient clipping, parameter-wise optimizer
     settings and other LR policies."""

@@ -1,15 +1,31 @@
 """LR schedule and optimizer: port of ``iif_tpu/engine/schedules.py``
 (``build_lr_schedule`` with step decay or the per-epoch cosine and the
-linear warm-up, ``build_optimizer`` for ``"sgd"``, ``classifier_mask``
-and ``reinit_classifier_head`` for decoupled classifier training).
+linear warm-up, ``build_optimizer`` for ``sgd``, ``nesterov``,
+``rmsprop`` and ``adamw``, ``classifier_mask`` and
+``reinit_classifier_head`` for decoupled classifier training).
 
-The JAX package's optax chain for SGD with a trainable mask is
-``masked set_to_zero -> add_decayed_weights -> trace(momentum) -> -lr``:
-coupled weight decay added to the gradient before the momentum buffer.
-That is ``torch.optim.SGD(momentum, dampening=0, weight_decay)`` over the
-trainable parameters only (a frozen parameter gets neither gradient nor
-decay), at ``lr=1`` under a ``LambdaLR`` that returns the schedule's rate.
-The schedule computes in float32, as the jitted JAX schedule does.
+The JAX package's optax chains, and their counterparts here, over the
+trainable parameters only (a frozen parameter has ``requires_grad`` off:
+it gets neither gradient nor decay, as JAX's masks give it), at ``lr=1``
+under a ``LambdaLR`` that returns the schedule's rate:
+
+- ``sgd``: ``add_decayed_weights -> trace(momentum) -> -lr``, coupled
+  decay before the momentum buffer: ``torch.optim.SGD(momentum,
+  dampening=0, weight_decay)``;
+- ``nesterov``: the same with ``trace(nesterov=True)``:
+  ``torch.optim.SGD(nesterov=True)`` (update ``g + m * buf``);
+- ``rmsprop``: ``add_decayed_weights -> scale_by_rms(decay=0.9,
+  eps=0.0316) -> trace(momentum) -> -lr``. optax puts eps inside the
+  square root (``g * rsqrt(nu + eps)``, nu from 0), which
+  ``torch.optim.RMSprop`` (``g / (sqrt(v) + eps)``) does not:
+  ``RMSpropOptax`` writes the chain;
+- ``adamw``: ``scale_by_adam()`` (b1 0.9, b2 0.999, eps 1e-8, bias
+  corrected) then decoupled decay inside the rate, ``p -= lr * (adam +
+  wd * p)``: ``AdamWOptax``.
+
+The two written here compute in optax's order in f32, each divisor a
+tensor. The schedule computes in float32, as the jitted JAX schedule
+does.
 """
 from __future__ import annotations
 
@@ -64,22 +80,104 @@ def build_lr_schedule(
     return schedule
 
 
+class RMSpropOptax(torch.optim.Optimizer):
+    """optax ``add_decayed_weights(wd) -> scale_by_rms(decay, eps) ->
+    trace(momentum) -> scale_by_learning_rate``: u = g + wd p; nu =
+    (1 - decay) u^2 + decay nu; t = u rsqrt(nu + eps) + momentum t;
+    p += -lr t."""
+
+    def __init__(self, params, lr: float = 1.0, momentum: float = 0.9,
+                 weight_decay: float = 0.0, decay: float = 0.9,
+                 eps: float = 0.0316):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay,
+                                      decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            d, m = group["decay"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g + group["weight_decay"] * p
+                st = self.state[p]
+                if not st:
+                    st["nu"] = torch.zeros_like(p)
+                    st["trace"] = torch.zeros_like(p)
+                st["nu"] = (1 - d) * (g * g) + d * st["nu"]
+                u = torch.rsqrt(st["nu"] + group["eps"]) * g
+                st["trace"] = u + m * st["trace"]
+                p.add_(st["trace"] * -group["lr"])
+
+
+class AdamWOptax(torch.optim.Optimizer):
+    """optax ``scale_by_adam(b1, b2, eps) -> add_decayed_weights(wd) ->
+    scale_by_learning_rate``: mu, nu moving averages of g and g^2, bias
+    corrected by 1 - b^count (f32), u = mu_hat / (sqrt(nu_hat) + eps) +
+    wd p; p += -lr u."""
+
+    def __init__(self, params, lr: float = 1.0, weight_decay: float = 0.0,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      b1=b1, b2=b2, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["b1"], group["b2"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["count"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                st["count"] += 1
+                st["mu"] = (1 - b1) * g + b1 * st["mu"]
+                st["nu"] = (1 - b2) * (g * g) + b2 * st["nu"]
+                n = np.float32(st["count"])
+                c1 = torch.full((), float(np.float32(1) - np.float32(b1) ** n),
+                                dtype=p.dtype, device=p.device)
+                c2 = torch.full((), float(np.float32(1) - np.float32(b2) ** n),
+                                dtype=p.dtype, device=p.device)
+                u = (st["mu"] / c1) / (torch.sqrt(st["nu"] / c2)
+                                       + group["eps"])
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p.add_(u * -group["lr"])
+
+
 def build_optimizer(
     opt_name: str,
     params: Iterable[torch.nn.Parameter],
     lr_schedule: Callable[[int], float],
     momentum: float = 0.9,
     weight_decay: float = 1e-4,
-) -> Tuple[torch.optim.SGD, torch.optim.lr_scheduler.LambdaLR]:
-    """SGD with momentum and coupled weight decay over the parameters
-    that require a gradient (the trainable mask: a frozen stage has
-    ``requires_grad`` off), and the scheduler that sets its rate from
-    ``lr_schedule`` at every step. Only ``"sgd"`` is ported."""
-    if opt_name.lower() != "sgd":
-        raise NotImplementedError(f"optimizer {opt_name!r} is not ported")
+) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
+    """The optimizer of ``opt_name`` (``sgd``, ``nesterov``, ``rmsprop``,
+    ``adamw``) over the parameters that require a gradient (the
+    trainable mask: a frozen stage has ``requires_grad`` off), and the
+    scheduler that sets its rate from ``lr_schedule`` at every step.
+    Other names raise ``ValueError``, as JAX's does."""
+    name = opt_name.lower()
     params = [p for p in params if p.requires_grad]
-    opt = torch.optim.SGD(params, lr=1.0, momentum=momentum, dampening=0.0,
-                          weight_decay=weight_decay)
+    if name in ("sgd", "nesterov"):
+        opt = torch.optim.SGD(params, lr=1.0, momentum=momentum,
+                              dampening=0.0, weight_decay=weight_decay,
+                              nesterov=name == "nesterov")
+    elif name == "rmsprop":
+        opt = RMSpropOptax(params, momentum=momentum,
+                           weight_decay=weight_decay)
+    elif name == "adamw":
+        opt = AdamWOptax(params, weight_decay=weight_decay)
+    else:
+        raise ValueError(f"Invalid optimizer {opt_name}. Only SGD and "
+                         "RMSprop are supported.")
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_schedule)
 
 

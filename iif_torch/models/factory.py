@@ -1,7 +1,5 @@
-"""Classifier factory: port of ``iif_tpu/models/factory.py`` over the
-models the port has. The BasicBlock ResNets (resnet18/34), ResNeXt and
-the wide variants raise ``NotImplementedError``; other names
-``KeyError``."""
+"""Classifier factory: port of ``iif_tpu/models/factory.py``, its 18
+classifiers; other names raise ``KeyError``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -19,13 +17,18 @@ _CLASSIFIER_MODELS = {
     "resnet56": _cifar.resnet56,
     "resnet110": _cifar.resnet110,
     "resnet1202": _cifar.resnet1202,
+    "resnet18": _big.resnet18,
+    "resnet34": _big.resnet34,
     "resnet50": _big.resnet50,
     "resnet101": _big.resnet101,
     "resnet152": _big.resnet152,
+    "resnext50_32x4d": _big.resnext50_32x4d,
+    "resnext101_32x8d": _big.resnext101_32x8d,
+    "wide_resnet50_2": _big.wide_resnet50_2,
+    "wide_resnet101_2": _big.wide_resnet101_2,
     "se_resnet50": _big.se_resnet50,
+    "se_resnext50_32x4d": _big.se_resnext50_32x4d,
 }
-_UNPORTED = ("resnet18", "resnet34", "resnext50_32x4d", "resnext101_32x8d",
-             "wide_resnet50_2", "wide_resnet101_2", "se_resnext50_32x4d")
 
 
 def build_classifier(name: str, num_classes: int,
@@ -35,8 +38,6 @@ def build_classifier(name: str, num_classes: int,
     ``use_norm``, BatchNorm over the whole batch (``bn_groups`` 0, flax's
     ``"bn"``) or over ``bn_groups`` groups of it (``"bn@G"``) and
     convolutions in ``compute_dtype``."""
-    if name in _UNPORTED:
-        raise NotImplementedError(f"model {name!r} is not ported")
     if name not in _CLASSIFIER_MODELS:
         raise KeyError(
             f"unknown model {name!r}; known: {sorted(_CLASSIFIER_MODELS)}")

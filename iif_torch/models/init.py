@@ -4,9 +4,11 @@ them, each parameter from the family of its flax initialiser
 
 - CIFAR ResNet-s convolutions ``variance_scaling(2, fan_in, normal)``
   (``models/layers.py:15``), ImageNet ResNet convolutions ``fan_out``
-  (``models/resnet.py:26``);
-- BN scale 1 (a bottleneck's ``bn3`` 0), bias 0, running mean 0 and
-  variance 1;
+  (``models/resnet.py:26``), each fan from the kernel as flax holds it:
+  a grouped (O, I / groups, kh, kw) weight is flax's (kh, kw, I / groups,
+  O), fan-in ``kh kw I / groups``, fan-out ``kh kw O``;
+- BN scale 1 (a bottleneck's ``bn3`` and a basic block's ``bn2`` 0),
+  bias 0, running mean 0 and variance 1;
 - SE dense layers and the plain head's kernel ``variance_scaling(2,
   fan_in, normal)``, its bias 0; ``NormedLinear`` U(-1, 1);
   ``CosNormClassifier`` U(-1, 1) / sqrt(in), its learned scale 5.
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 
 from iif_torch.models.layers import CosNormClassifier, Linear, NormedLinear
-from iif_torch.models.resnet import Bottleneck, ResNet
+from iif_torch.models.resnet import BasicBlock, Bottleneck, ResNet
 from iif_torch.models.resnet_cifar import ResNetS
 from iif_torch.utils.init import ParamInit, head_of, receptive
 
@@ -66,6 +68,8 @@ def classifier_fresh_init_(model: nn.Module,
         for m in model.modules():
             if isinstance(m, Bottleneck):
                 init.const(m.bn3.weight, 0.0)
+            elif isinstance(m, BasicBlock):
+                init.const(m.bn2.weight, 0.0)
         _head(init, head_of(model))
     missed = [name for name, t in list(model.named_parameters())
               + list(model.named_buffers())

@@ -7,8 +7,11 @@ torchvision's and mmdet's state_dict names (``conv1``, ``bn1``,
 As a detection trunk (``num_classes=None``) it returns its stage outputs;
 as a classifier it pools them globally and applies the head of
 ``use_norm`` (``iif_torch/models/layers.py``), ``use_se`` adding the SE
-block (r=16) after each bottleneck's ``bn3``: ``resnet50/101/152`` and
-``se_resnet50``.
+block (r=16) after each block's last BatchNorm: the JAX factory's eleven
+ImageNet classifiers, ``resnet18/34`` (``BasicBlock``),
+``resnet50/101/152``, ``resnext50_32x4d`` / ``resnext101_32x8d`` and
+``wide_resnet50_2`` / ``wide_resnet101_2`` (a grouped or wider 3x3 conv
+in the bottleneck), ``se_resnet50`` and ``se_resnext50_32x4d``.
 
 ``num_stages=3`` is the C4 trunk (mmdet ``num_stages=3``): no ``layer4``,
 three outputs. ``ResLayer`` is res5 run per RoI as the C4 shared head
@@ -78,30 +81,78 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+def _projection(inplanes: int, out: int, stride: int,
+                bn_groups: int) -> nn.Sequential:
+    """The shortcut's 1x1 conv and its BatchNorm (``downsample.0`` /
+    ``.1``)."""
+    return nn.Sequential(
+        nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
+        BatchNorm2d(out, 1e-5, bn_groups))
+
+
+class BasicBlock(nn.Module):
+    """JAX's ``BasicBlockV1``: two 3x3 convs, the stride on the first,
+    the zero-initialised ``bn2`` (its scale), with ``use_se`` the SE
+    block (r=16) after ``bn2``; the projection shortcut where the shape
+    changes."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False, compute_dtype=None,
+                 use_se: bool = False, bn_groups: int = 0,
+                 groups: int = 1, base_width: int = 64):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride,
+                               padding=1, bias=False)
+        self.bn1 = BatchNorm2d(planes, 1e-5, bn_groups)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(planes, 1e-5, bn_groups)
+        self.se = SEBlock(planes, 16) if use_se else None
+        self.downsample = (_projection(inplanes, planes, stride, bn_groups)
+                           if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        out = F.relu(self.bn1(conv_in_dtype(self.conv1, x, dt)))
+        out = self.bn2(conv_in_dtype(self.conv2, out, dt))
+        if self.se is not None:
+            out = self.se(out)
+        identity = x
+        if self.downsample is not None:
+            identity = self.downsample[1](
+                conv_in_dtype(self.downsample[0], x, dt))
+        return F.relu(out + identity)
+
+
 class Bottleneck(nn.Module):
-    """torchvision v1.5 bottleneck: stride on the 3x3 conv; with
-    ``use_se`` the SE block (r=16) after ``bn3``. The SE block's f32
-    output promotes the residual sum to f32, as in JAX."""
+    """torchvision v1.5 bottleneck: stride on the 3x3 conv, which is
+    grouped (``groups``) at width ``int(planes * base_width / 64) *
+    groups`` (ResNeXt, the wide variants); with ``use_se`` the SE block
+    (r=16) after ``bn3``. The SE block's f32 output promotes the residual
+    sum to f32, as in JAX."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, compute_dtype=None,
-                 use_se: bool = False, bn_groups: int = 0):
+                 use_se: bool = False, bn_groups: int = 0,
+                 groups: int = 1, base_width: int = 64):
         super().__init__()
         self.compute_dtype = compute_dtype
         out = planes * self.expansion
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = BatchNorm2d(planes, 1e-5, bn_groups)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
-                               bias=False)
-        self.bn2 = BatchNorm2d(planes, 1e-5, bn_groups)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
+        self.bn1 = BatchNorm2d(width, 1e-5, bn_groups)
+        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1,
+                               groups=groups, bias=False)
+        self.bn2 = BatchNorm2d(width, 1e-5, bn_groups)
+        self.conv3 = nn.Conv2d(width, out, 1, bias=False)
         self.bn3 = BatchNorm2d(out, 1e-5, bn_groups)
         self.se = SEBlock(out, 16) if use_se else None
-        self.downsample = (nn.Sequential(
-            nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
-            BatchNorm2d(out, 1e-5, bn_groups)) if downsample else None)
+        self.downsample = (_projection(inplanes, out, stride, bn_groups)
+                           if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -118,34 +169,38 @@ class Bottleneck(nn.Module):
 
 
 def _stage(inplanes: int, planes: int, n_blocks: int, stride: int,
-           compute_dtype, use_se: bool = False,
-           bn_groups: int = 0) -> nn.Sequential:
-    """One stage of bottlenecks, the first taking the stride and, where
-    the shape changes, the projection shortcut."""
+           compute_dtype, use_se: bool = False, bn_groups: int = 0,
+           block=None, groups: int = 1,
+           base_width: int = 64) -> nn.Sequential:
+    """One stage of ``block``s (default ``Bottleneck``), the first taking
+    the stride and, where the shape changes, the projection shortcut."""
+    block = block or Bottleneck
     blocks = []
     for i in range(n_blocks):
         first = i == 0
         downsample = first and (
-            stride != 1 or inplanes != planes * Bottleneck.expansion)
-        blocks.append(Bottleneck(inplanes, planes, stride if first else 1,
-                                 downsample, compute_dtype, use_se,
-                                 bn_groups))
-        inplanes = planes * Bottleneck.expansion
+            stride != 1 or inplanes != planes * block.expansion)
+        blocks.append(block(inplanes, planes, stride if first else 1,
+                            downsample, compute_dtype, use_se, bn_groups,
+                            groups, base_width))
+        inplanes = planes * block.expansion
     return nn.Sequential(*blocks)
 
 
 class ResNet(nn.Module):
-    """Bottleneck ResNet. With ``num_classes=None`` a trunk returning its
-    stage outputs (C2..C5, or C2..C4 with ``num_stages=3``); with
-    ``num_classes`` a classifier: global average pool and the head of
-    ``use_norm`` (named ``fc``)."""
+    """ResNet of ``block`` ``"bottleneck"`` (``groups`` and
+    ``width_per_group`` set the 3x3 conv's width) or ``"basic"``. With
+    ``num_classes=None`` a trunk returning its stage outputs (C2..C5, or
+    C2..C4 with ``num_stages=3``); with ``num_classes`` a classifier:
+    global average pool and the head of ``use_norm`` (named ``fc``)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  frozen_stages: int = -1, norm_eval: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
                  num_stages: int = 4, num_classes: Optional[int] = None,
                  use_norm: Optional[str] = None, use_se: bool = False,
-                 bn_groups: int = 0):
+                 bn_groups: int = 0, block: str = "bottleneck",
+                 groups: int = 1, width_per_group: int = 64):
         super().__init__()
         self.frozen_stages = frozen_stages
         self.norm_eval = norm_eval
@@ -153,13 +208,15 @@ class ResNet(nn.Module):
         self.num_stages = num_stages
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64, 1e-5, bn_groups)
+        block_cls = {"bottleneck": Bottleneck, "basic": BasicBlock}[block]
         inplanes = 64
         for stage, (planes, n_blocks) in enumerate(
                 zip((64, 128, 256, 512)[:num_stages], layers), start=1):
             self.add_module(f"layer{stage}", _stage(
                 inplanes, planes, n_blocks, 1 if stage == 1 else 2,
-                compute_dtype, use_se, bn_groups))
-            inplanes = planes * Bottleneck.expansion
+                compute_dtype, use_se, bn_groups, block_cls, groups,
+                width_per_group))
+            inplanes = planes * block_cls.expansion
         self.fc = (None if num_classes is None
                    else make_classifier_head(inplanes, num_classes, use_norm))
         if frozen_stages >= 0:            # mmdet ResNet._freeze_stages
@@ -240,6 +297,16 @@ class ResLayer(nn.Module):
 
 
 # ------------------------------------------------------------ classifiers
+def resnet18(num_classes: int = 1000, use_norm=None, **kw) -> ResNet:
+    return ResNet((2, 2, 2, 2), num_classes=num_classes, use_norm=use_norm,
+                  block="basic", **kw)
+
+
+def resnet34(num_classes: int = 1000, use_norm=None, **kw) -> ResNet:
+    return ResNet((3, 4, 6, 3), num_classes=num_classes, use_norm=use_norm,
+                  block="basic", **kw)
+
+
 def resnet50(num_classes: int = 1000, use_norm=None, **kw) -> ResNet:
     return ResNet((3, 4, 6, 3), num_classes=num_classes, use_norm=use_norm,
                   **kw)
@@ -255,6 +322,36 @@ def resnet152(num_classes: int = 1000, use_norm=None, **kw) -> ResNet:
                   use_norm=use_norm, **kw)
 
 
+def resnext50_32x4d(num_classes: int = 1000, use_norm=None,
+                    **kw) -> ResNet:
+    return ResNet((3, 4, 6, 3), num_classes=num_classes, use_norm=use_norm,
+                  groups=32, width_per_group=4, **kw)
+
+
+def resnext101_32x8d(num_classes: int = 1000, use_norm=None,
+                     **kw) -> ResNet:
+    return ResNet((3, 4, 23, 3), num_classes=num_classes,
+                  use_norm=use_norm, groups=32, width_per_group=8, **kw)
+
+
+def wide_resnet50_2(num_classes: int = 1000, use_norm=None,
+                    **kw) -> ResNet:
+    return ResNet((3, 4, 6, 3), num_classes=num_classes, use_norm=use_norm,
+                  width_per_group=128, **kw)
+
+
+def wide_resnet101_2(num_classes: int = 1000, use_norm=None,
+                     **kw) -> ResNet:
+    return ResNet((3, 4, 23, 3), num_classes=num_classes,
+                  use_norm=use_norm, width_per_group=128, **kw)
+
+
 def se_resnet50(num_classes: int = 1000, use_norm=None, **kw) -> ResNet:
     return ResNet((3, 4, 6, 3), num_classes=num_classes, use_norm=use_norm,
                   use_se=True, **kw)
+
+
+def se_resnext50_32x4d(num_classes: int = 1000, use_norm=None,
+                       **kw) -> ResNet:
+    return ResNet((3, 4, 6, 3), num_classes=num_classes, use_norm=use_norm,
+                  groups=32, width_per_group=4, use_se=True, **kw)

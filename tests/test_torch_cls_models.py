@@ -248,18 +248,16 @@ def test_factory_names_and_refusals():
     from iif_torch.models.resnet import ResNet
     from iif_torch.models.resnet_cifar import ResNetS
 
+    from iif_tpu.models.factory import classifier_model_names as jax_names
+
     names = classifier_model_names()
-    assert {"resnet20", "resnet32", "se_resnet32", "resnet44", "resnet56",
-            "resnet110", "resnet1202", "resnet50", "resnet101", "resnet152",
-            "se_resnet50"} == set(names)
+    assert names == jax_names() and len(names) == 18
     assert isinstance(build_classifier("resnet32", 100), ResNetS)
     m = build_classifier("se_resnet50", 1000, "cosine", bn_groups=4)
     assert isinstance(m, ResNet) and m.layer1[0].se is not None
     assert {b.groups for b in m.modules()
             if isinstance(b, torch.nn.BatchNorm2d)} == {4}
-    for name in ("resnet18", "resnext50_32x4d", "wide_resnet50_2"):
-        with pytest.raises(NotImplementedError, match=name):
-            build_classifier(name, 10)
+    assert isinstance(build_classifier("resnet18", 10), ResNet)
     with pytest.raises(KeyError):
         build_classifier("vit", 10)
 

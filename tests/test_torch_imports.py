@@ -68,7 +68,10 @@ def test_port_package_has_every_module():
                 "data/cifar_lt.py", "data/lt_dataset.py",
                 "data/samplers.py", "data/loader.py", "data/augment.py",
                 "engine/classification.py", "engine/per_shot.py",
-                "cli/train.py", "utils/init.py", "utils/prefetch.py"):
+                "cli/train.py", "utils/init.py", "utils/prefetch.py",
+                "data/autoaugment.py", "data/branch_augment.py",
+                "quant.py", "engine/calibration.py",
+                "cli/train_quantization.py"):
         assert mod in names, mod
     for src in ("roi_align_ml.cu", "roi_align.cu", "roi_align_common.cuh"):
         assert (REPO / "iif_torch" / "csrc" / src).is_file(), src
