@@ -155,9 +155,27 @@
    resnet18/34, resnext50_32x4d, resnext101_32x8d, wide_resnet50_2,
    wide_resnet101_2 and se_resnext50_32x4d at full depth and width, 224
    (``family_phase``).
-16. The card's name and power limit, the ``kernels`` JSON line (each row
-   also with its launches on the classification, QAT, augmentation and
-   family paths), then the device line as the last line.
+16. FASA cascade serving (``cascade_serving_phase``): the flagship
+   ``configs/fasa/fasa_iif_cascade_r101_rfs_cos_norm_2x.py`` as it stands
+   through ``init_detector`` with ``fresh_init_`` weights, 20 b1 requests
+   and 10 b2 batches, K1's launches from 0 (three 7x7 and one 14x14 a
+   forward, all ``vec8``), each image's stage RoI features and scores
+   against the plain RoIAlign, K1 on each stage's RoIs (``k1_row``), and
+   after the MaskRCNN profile its own, a span a stage.
+17. FASA cascade training (``cascade_training_phase``): the same config
+   with ``grad_clip`` 35 through ``trainer_from_config`` at b4, 3 + 5
+   steps at epoch 0 and 5 at epoch 1, K1 and K2 from 0, the global
+   norms, peak memory, a profiled step, K1 and K2 on a step's stage-3
+   RoIs.
+18. The dynamic runner (``fasa_cli_phase``): ``iif_torch.cli.train_det``
+   on the flagship config over 8 + 8 seeded PNGs with ``data.val``, 2
+   epochs of 2 steps, the val pass and dynamic sampling at 1203 classes
+   (its seconds), ``prob_list`` moved, ``--resume-from`` restoring every
+   FASA field, the checkpoint served back; then FASA MaskRCNN R50 steps
+   (``fasa_r50_phase``).
+19. The card's name and power limit, the ``kernels`` JSON line (each row
+   also with its launches on the classification, QAT, augmentation,
+   family and FASA paths), then the device line as the last line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or the
 ``iif_torch`` package is not beside this file; any failed check raises.
@@ -166,6 +184,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1058,57 +1077,65 @@ def serving_images(np):
 
 
 def request_vs_plain(torch, det, image):
-    """One request of ``det`` on ``image`` (an array or a path): its FPN
-    maps, RoIs and K1's outputs, recorded at the extractor, against the
-    plain RoIAlign on the same inputs (within one bf16 ulp), and the
-    class scores from each (within CLS_REL_TOL)."""
+    """One MaskRCNN request of ``det`` on ``image`` (an array or a path):
+    ``features_vs_plain`` of its 7x7 and 14x14 extractor calls."""
     from iif_torch.detection.inference import inference_detector
-    from iif_torch.detection.roi_extractor import SingleRoIExtractor
 
     seen = []
+    with patched(capture_extractor(seen)):
+        inference_detector(det, image, masks=False)
+    return features_vs_plain(torch, seen, [7, 14],
+                             lambda i: det.model.roi_head.bbox_head)
+
+
+def capture_extractor(seen):
+    """A ``patched`` change of ``SingleRoIExtractor.__call__`` that adds
+    (output size, level maps, RoIs, output) of each call to ``seen``."""
+    from iif_torch.detection.roi_extractor import SingleRoIExtractor
+
     extract = SingleRoIExtractor.__call__
 
     def record(self, feats, rois):
         out = extract(self, feats, rois)
-        seen.append((self.output_size[0], feats, rois, out))
+        seen.append((self.output_size[0], [f.detach() for f in feats[:4]],
+                     rois.detach().clone(), out.detach()))
         return out
 
-    SingleRoIExtractor.__call__ = record
-    try:
-        inference_detector(det, image, masks=False)
-    finally:
-        SingleRoIExtractor.__call__ = extract
-    return features_vs_plain(torch, det.model, seen)
+    return SingleRoIExtractor, "__call__", record
 
 
-def features_vs_plain(torch, model, seen):
-    """The (output size, FPN maps, RoIs, K1's output) of one forward's two
-    extractor calls against the plain RoIAlign on the same inputs (within
-    one bf16 ulp), and ``model``'s class scores from each (within
-    CLS_REL_TOL)."""
+def features_vs_plain(torch, seen, sizes, head_of):
+    """The (output size, FPN maps, RoIs, K1's output) of one forward's
+    extractor calls, of output ``sizes`` in order, against the plain
+    RoIAlign on the same inputs (within one bf16 ulp), and the class
+    scores of each 7x7 call's features from the two, through the bbox head
+    ``head_of(i)`` of call ``i`` (within CLS_REL_TOL). A size called more
+    than once (the cascade's stages) names its calls ``_stage{i}``. Each
+    call's mean RoI side in pixels is kept too."""
     from iif_torch.ops.roi_align_ml import roi_align_ml_reference
 
-    check([o for o, *_ in seen] == [7, 14], "one 7x7 and one 14x14 call")
-    compare = {}
+    got = [o for o, *_ in seen]
+    check(got == list(sizes), f"extractor calls of sizes {sizes}: {got}")
+    compare = {"cls_score_tolerance": CLS_REL_TOL}
     with torch.inference_mode():
-        for o, nhwc, rois, k_feat in seen:
+        for i, (o, nhwc, rois, k_feat) in enumerate(seen):
+            tag = "" if sizes.count(o) == 1 else f"_stage{i}"
             p_feat = roi_align_ml_reference(nhwc, rois, (o, o)).to(
                 k_feat.dtype)
             ulps = ((k_feat.float() - p_feat.float()).abs()
                     / bf16_ulp(p_feat.float())).max().item()
-            compare[f"roi_feats_{o}_max_err_ulps"] = ulps
-            if ulps > 1.0:
-                raise RuntimeError(f"{o}x{o} RoI features differ: {ulps}")
+            compare[f"roi_feats_{o}{tag}_max_err_ulps"] = ulps
+            compare[f"mean_roi_side_px_{o}{tag}"] = (
+                (rois[:, 3] - rois[:, 1]) * (rois[:, 4] - rois[:, 2])
+            ).clamp(min=0).sqrt().mean().item()
+            check(ulps <= 1.0, f"{o}x{o}{tag} RoI features differ: {ulps}")
             if o == 7:
-                bbox_head = model.roi_head.bbox_head
-                k_cls = bbox_head(k_feat)[0]
-                p_cls = bbox_head(p_feat)[0]
+                head = head_of(i)
+                k_cls, p_cls = head(k_feat)[0], head(p_feat)[0]
                 rel = ((k_cls - p_cls).abs().max()
                        / p_cls.abs().max()).item()
-                compare["cls_score_max_rel_err"] = rel
-                compare["cls_score_tolerance"] = CLS_REL_TOL
-                if rel > CLS_REL_TOL:
-                    raise RuntimeError(f"cls_score differs: {rel}")
+                compare[f"cls_score{tag}_max_rel_err"] = rel
+                check(rel <= CLS_REL_TOL, f"cls_score{tag} differs: {rel}")
     return compare
 
 
@@ -2290,7 +2317,8 @@ def evaluation_phase(torch, np, work, tmp):
 
     # the first batch's RoI features and class scores against the plain
     # RoIAlign
-    compare = features_vs_plain(torch, model[0], seen)
+    compare = features_vs_plain(torch, seen, [7, 14],
+                                lambda i: model[0].roi_head.bbox_head)
     log("evaluation batch vs plain RoIAlign", json.dumps(compare))
     captured = ([f.float() for f in seen[0][1][:4]], seen[0][2].clone(),
                 seen[1][2].clone())
@@ -2464,15 +2492,34 @@ CONV_PARTS = ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad", "fprop",
               "implicit", "sm90")
 
 
-def roi_launches():
-    """K1-K4 launches counted since the wrappers' last reset."""
+def roi_launches_by_size():
+    """K1-K4 launches counted since the wrappers' last reset, by output
+    side (K3's and K4's outputs are square)."""
     import iif_torch.ops.roi_align as k34
     import iif_torch.ops.roi_align_ml as k12
 
-    return {"K1": sum(k12.roi_align_ml.launches_by_size.values()),
-            "K2": sum(k12.grad_launches_by_size.values()),
-            "K3": sum(k34.roi_align.launches_by_size.values()),
-            "K4": sum(k34.grad_launches_by_size.values())}
+    def by_side(counts):
+        out = {}
+        for (h, _), n in counts.items():
+            out[h] = out.get(h, 0) + n
+        return out
+
+    return {"K1": dict(k12.roi_align_ml.launches_by_size),
+            "K2": dict(k12.grad_launches_by_size),
+            "K3": by_side(k34.roi_align.launches_by_size),
+            "K4": by_side(k34.grad_launches_by_size)}
+
+
+def roi_launches():
+    """K1-K4 launches counted since the wrappers' last reset."""
+    return {k: sum(v.values()) for k, v in roi_launches_by_size().items()}
+
+
+def add_launches(a, b, sign=1):
+    """``a`` plus (or with ``sign`` -1 less) ``b``, two
+    ``roi_launches_by_size`` dicts."""
+    return {k: {o: a[k].get(o, 0) + sign * b[k].get(o, 0)
+                for o in set(a[k]) | set(b[k])} for k in a}
 
 
 def reset_roi_launches():
@@ -3186,6 +3233,438 @@ def qat_phase(torch, np, root):
             "peak_gib": peak, "launches": launches}
 
 
+# ------------------------------------------------------------ FASA + IIF
+CASCADE_CONFIG = "configs/fasa/fasa_iif_cascade_r101_rfs_cos_norm_2x.py"
+FASA_R50_CONFIG = "configs/fasa/fasa_iif_r50_rfs_cos_norm_2x.py"
+CASCADE_REQUESTS = 20              # b1 requests; b2: half as many batches
+CASCADE_TIMED = 5                  # timed steps at epoch 0 and at epoch 1
+CASCADE_CLIP = 35.0                # optimizer_config.grad_clip.max_norm
+FASA_CLI_IMAGES = 8                # train and val PNGs of the CLI phase
+FASA_CLI_STEPS = 2                 # --max-steps: b4 steps an epoch
+FASA_R50_STEPS = 3                 # timed epoch-1 steps after a warm-up
+CASCADE_STAGES = ("backbone_fpn", "rpn") + tuple(
+    f"stage{i}_{part}" for i in range(3)
+    for part in ("bbox_roi_align", "bbox_head")) + (
+    "bbox_nms", "mask_roi_align", "mask_head")
+CASCADE_TRAIN_STAGES = ("backbone_fpn", "rpn_loss", "rpn_proposals") + tuple(
+    f"stage{i}_{part}" for i in range(3)
+    for part in ("targets", "bbox_roi_align", "bbox_head_loss", "fasa",
+                 "mask_loss")) + ("backward", "optimizer")
+
+
+def lvis_cfg(np, config, split):
+    """``config`` with its ``split`` set on the seeded 1203-class LVIS
+    annotations; returns the config and the classes' counts."""
+    from iif_torch.config import Config
+
+    cfg = Config.fromfile(str(REPO / config))
+    ann = BUILD / "lvis_v1_synthetic.json"
+    counts = write_lvis_annotations(np, ann)
+    cfg.data[split]["ann_file"] = str(ann)
+    return cfg, counts
+
+
+def cascade_serving_phase(torch, np):
+    """The FASA cascade config as it stands (R101-FPN, bf16 trunk, 1203
+    classes, normed heads, class-specific regressors, the 0.33 stage stds,
+    ``score_thr=1e-4``, ``nms_iou=0.3``, 300 detections) through
+    ``init_detector``, its weights from ``fresh_init_`` (seeded):
+    CASCADE_REQUESTS b1 requests and half as many b2 batches on the
+    800x1344 canvas, ms/image, K1's launches from 0 by path (three 7x7
+    and one 14x14 a forward, all on ``vec8``, no K2); each served image's
+    stage RoI features and class scores against the plain RoIAlign; K1
+    against its plain version on each stage's captured RoIs (f32 and
+    bf16, ``k1_row``)."""
+    from iif_torch.detection.cascade import (
+        CascadeMaskRCNN,
+        cascade_simple_test,
+    )
+    from iif_torch.detection.inference import (
+        inference_detector,
+        inference_detector_batch,
+        init_detector,
+    )
+    from iif_torch.detection.init import fresh_init_
+    from iif_torch.detection.losses import DetIIFLoss
+    from iif_torch.ops.roi_align_ml import roi_align_ml
+
+    cfg, _ = lvis_cfg(np, CASCADE_CONFIG, "test")
+    t0 = time.time()
+    det = init_detector(cfg, device="cuda")
+    fresh_init_(det.model, torch.Generator().manual_seed(0))
+    log(f"cascade init_detector + fresh_init_ s {time.time() - t0:.3f}")
+    m, tc = det.model, det.test_cfg
+    check(isinstance(m, CascadeMaskRCNN) and m.num_stages == 3,
+          "a three-stage cascade")
+    check(m.num_classes == NUM_CLASSES and len(m.backbone.layer3) == 23
+          and m.backbone.compute_dtype == torch.bfloat16,
+          "R101, 1203 classes, bf16 trunk")
+    check(m.stage_stds[2] == (0.33, 0.33, 0.067, 0.067)
+          and not m.reg_class_agnostic
+          and m.roi_head.bbox_head[0].fc_reg.out_features == 4 * NUM_CLASSES,
+          "stage stds and class-specific regressors")
+    check(type(m.roi_head.bbox_head[2].fc_cls).__name__ == "NormedLinear"
+          and m.roi_head.mask_head[2].predictor == "normed",
+          "normed heads")
+    check(isinstance(det.loss_cls, DetIIFLoss), "IIF loss")
+    check((tc.score_thr, tc.nms_iou, tc.max_per_img) == (1e-4, 0.3, 300),
+          "test_cfg 1e-4, 0.3, 300")
+    sizes, images = serving_images(np)
+    inference_detector(det, images[0], masks=False)
+    inference_detector_batch(det, images[:2], pad_to=2, masks=False)
+    torch.cuda.synchronize()
+
+    reset_roi_launches()
+    b1_ms, results = [], []
+    for i in range(CASCADE_REQUESTS):
+        t0 = time.perf_counter()
+        results.append(inference_detector(det, images[i % len(images)],
+                                          masks=False))
+        b1_ms.append((time.perf_counter() - t0) * 1e3)
+    by_size = {"b1": roi_launches_by_size()}
+    paths = {"b1": dict(roi_align_ml.launches_by_path)}
+    reset_roi_launches()
+    b2_ms = []
+    for i in range(0, CASCADE_REQUESTS, 2):
+        pair = [images[i % len(images)], images[(i + 1) % len(images)]]
+        t0 = time.perf_counter()
+        results += inference_detector_batch(det, pair, pad_to=2,
+                                            masks=False)
+        b2_ms.append((time.perf_counter() - t0) * 1e3 / 2)
+    by_size["b2"] = roi_launches_by_size()
+    paths["b2"] = dict(roi_align_ml.launches_by_path)
+    launches = {p: c["K1"] for p, c in by_size.items()}
+    for path, n in (("b1", CASCADE_REQUESTS), ("b2", CASCADE_REQUESTS // 2)):
+        check(launches[path] == {7: 3 * n, 14: n},
+              f"K1 three 7x7 and one 14x14 a forward on {path}: "
+              f"{launches[path]}")
+        check(not any(by_size[path][k] for k in ("K2", "K3", "K4")),
+              f"no K2, K3 or K4 on the cascade {path} path")
+        check_vec8(f"K1 on the cascade {path} path", paths[path], 4 * n)
+    total_by_size = add_launches(by_size["b1"], by_size["b2"])
+    log("cascade serving launches", json.dumps(launches))
+    for res in results:
+        check(res["boxes"].shape == (300, 4) and res["valid"].any(),
+              "300 detections, some valid")
+        for k, v in res.items():
+            check(np.isfinite(v.astype(np.float64)).all(), f"finite {k}")
+
+    # each served image: its stages' RoI features and scores against the
+    # plain RoIAlign; K1 against its plain version on the last one's RoIs
+    compare, seen = {}, []
+    for j, image in enumerate(images):
+        seen.clear()
+        with patched(capture_extractor(seen)):
+            inference_detector(det, image, masks=False)
+        compare[f"image{j}"] = features_vs_plain(
+            torch, seen, [7, 7, 7, 14], lambda i: m.roi_head.bbox_head[i])
+    log("cascade requests vs plain RoIAlign", json.dumps(compare))
+    k1 = {}
+    for i, (o, nhwc, rois, _) in enumerate(seen):
+        feats32 = [f.float() for f in nhwc]
+        for dt in (torch.float32, torch.bfloat16):
+            row = k1_row(torch, feats32, rois, o, dt)
+            check(row["path"] == "vec8", "K1 takes vec8 on cascade RoIs")
+            k1[(f"stage{i}" if o == 7 else "mask", row["dtype"])] = row
+    sample = det.pipeline(images[1], det.device)
+    out = cascade_simple_test(m, sample["image"][None].expand(2, -1, -1, -1),
+                              det.loss_cls, tc)
+    check(tuple(out["masks"].shape) == (2, 300, 28, 28)
+          and bool(torch.isfinite(out["masks"]).all())
+          and float(out["masks"].min()) >= 0.0
+          and float(out["masks"].max()) <= 1.0, "cascade masks")
+    return {"b1_ms_per_image": spread(b1_ms),
+            "b2_ms_per_image": spread(b2_ms), "launches": launches,
+            "launches_by_size": total_by_size, "vs_plain": compare, "k1": k1,
+            "detector": det, "image": images[3]}
+
+
+def fasa_trainer(torch, np, config, options=None):
+    """``trainer_from_config`` of ``config`` on the seeded LVIS counts and
+    its initial state with FASA (one state a cascade stage)."""
+    from iif_torch.detection.datasets import build_dataset
+    from iif_torch.detection.inference import build_loss_cls
+    from iif_torch.engine.detection import (
+        init_fasa_states,
+        trainer_from_config,
+    )
+
+    cfg, counts = lvis_cfg(np, config, "train")
+    cfg.merge_from_options(options or {})
+    train_ds = build_dataset({k: v for k, v in cfg.data["train"].items()
+                              if k != "oversample_thr"})
+    loss_cls = build_loss_cls(cfg.loss_cls, train_ds, NUM_CLASSES)
+    t0 = time.time()
+    trainer = trainer_from_config(
+        cfg, loss_cls, LVIS_IMAGES // cfg.data["samples_per_gpu"],
+        device="cuda")
+    state = trainer.init_state(init_fasa_states(
+        trainer.model, counts, cfg.fasa_cfg, trainer.device))
+    log(f"{Path(config).stem} trainer_from_config s {time.time() - t0:.3f}")
+    check(trainer.grad_clip == CASCADE_CLIP, "grad clip 35")
+    check(trainer.fasa_cfg == dict(cfg.fasa_cfg), "fasa_cfg")
+    return trainer, state
+
+
+def timed_fasa_steps(torch, trainer, state, batch, plan):
+    """The steps of ``plan``, (epoch, steps, timed from), each drained:
+    the times by epoch, every step's metrics (all finite, a positive
+    global norm)."""
+    times, rows = {}, []
+    for epoch, n, first in plan:
+        for i in range(n):
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, batch, epoch=epoch)
+            torch.cuda.synchronize()
+            if i >= first:
+                times.setdefault(epoch, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+            rows.append({k: v.item() for k, v in m.items()})
+    for i, row in enumerate(rows):
+        log(f"FASA step {i}", json.dumps(row))
+        for k, v in row.items():
+            check(math.isfinite(v), f"finite {k} at step {i}")
+        check(row["grad_norm"] > 0, "global gradient norm logged")
+    return state, times, rows
+
+
+def cascade_training_phase(torch, np):
+    """The FASA cascade config (with ``optimizer_config.grad_clip``
+    max_norm 35 set, which the R50 FASA config has and the cascade's
+    lacks) through ``trainer_from_config`` at b4 on a seeded synthetic
+    batch: TRAIN_WARMUP + CASCADE_TIMED steps at epoch 0, then
+    CASCADE_TIMED at epoch 1 with the virtual-feature loss on; K1's and
+    K2's launches from 0 (three a size a step, all on ``vec8``), the
+    global norms, ms/step, peak memory, the stages and busy share of a
+    profiled step; then K1 and K2 against their plain versions on one
+    step's own stage-3 RoIs and maps."""
+    import iif_torch.detection.cascade as cascade_mod
+    import iif_torch.engine.detection as engine_mod
+    from iif_torch.ops.roi_align_ml import (
+        grad_launches_by_path,
+        roi_align_ml,
+    )
+
+    trainer, state = fasa_trainer(
+        torch, np, CASCADE_CONFIG,
+        {"optimizer_config": {"grad_clip": {"max_norm": CASCADE_CLIP}}})
+    tcfg = trainer.train_cfg
+    check((tcfg.rpn_nms_pre, tcfg.rpn_max_per_img) == (2000, 2000),
+          "rpn_nms_pre and max_per_img 2000")
+    batch = synthetic_train_batch(np, torch, "cuda")
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state, times, rows = timed_fasa_steps(
+        torch, trainer, state, batch,
+        ((0, TRAIN_WARMUP + CASCADE_TIMED, TRAIN_WARMUP),
+         (1, CASCADE_TIMED, 0)))
+    n = TRAIN_WARMUP + 2 * CASCADE_TIMED
+    by_size = roi_launches_by_size()
+    launches = {k: by_size[k] for k in ("K1", "K2")}
+    log("cascade training launches", json.dumps(launches))
+    for k, by_path in (("K1", roi_align_ml.launches_by_path),
+                       ("K2", grad_launches_by_path)):
+        check(launches[k] == {7: 3 * n, 14: 3 * n},
+              f"{k} three a size a step: {launches[k]}")
+        check_vec8(f"{k} on the cascade training path", by_path, 6 * n)
+    check(not by_size["K3"] and not by_size["K4"], "no K3 or K4")
+    check(all(s.feature_used.sum() > 0 for s in state.fasa),
+          "each stage's FASA statistics moved")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    norms = [r["grad_norm"] for r in rows]
+    median = statistics.median(times[0] + times[1])
+    result = {"steps": n, "step_ms_epoch0": spread(times[0]),
+              "step_ms_epoch1": spread(times[1]),
+              "img_per_s": TRAIN_BATCH * 1e3 / median,
+              "grad_norms": norms,
+              "steps_clipped": sum(v >= CASCADE_CLIP for v in norms),
+              "first_loss": rows[0]["loss"], "last_loss": rows[-1]["loss"],
+              "launches": launches, "launches_by_size": by_size,
+              "peak_allocated_gib": peak}
+    state, result["profile"] = profile_train_step(
+        torch, trainer, state, batch, (cascade_mod, engine_mod),
+        CASCADE_TRAIN_STAGES, (("K1", "roi_align_ml_fwd_kernel"),
+                               ("K2", "roi_align_ml_bwd_kernel"),
+                               ("K2 cast", "cast_f32_bf16_kernel")), median)
+
+    # K1 and K2 on one step's own stage-3 maps and RoIs
+    seen = []
+    with patched(capture_extractor(seen)):
+        state, _ = trainer.train_step(state, batch, epoch=1)
+    check([o for o, *_ in seen] == [7, 14] * 3, "7x7 and 14x14 a stage")
+    rng = np.random.RandomState(7)
+    k1, k2, sides = {}, {}, []
+    for i, (o, nhwc, rois, _) in enumerate(seen):
+        sides.append(((rois[:, 3] - rois[:, 1]) * (rois[:, 4] - rois[:, 2])
+                      ).clamp(min=0).sqrt().mean().item())
+        if i < 4:
+            continue
+        feats32 = [f.float() for f in nhwc]
+        g32 = torch.tensor(rng.randn(rois.shape[0], o, o, 256),
+                           dtype=torch.float32, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            row = k1_row(torch, feats32, rois, o, dt)
+            k1[(o, row["dtype"])] = row
+            row = k2_row(torch, feats32, rois, g32, o, dt)
+            k2[(o, row["dtype"])] = row
+    result["mean_roi_side_px_by_call"] = sides
+    result["k1"], result["k2"] = k1, k2
+    return result
+
+
+def fasa_cli_phase(torch, np, tmp):
+    """``python -m iif_torch.cli.train_det`` in the process on the FASA
+    cascade config as it stands (the dynamic runner, b4), over a seeded
+    LVIS-style set of FASA_CLI_IMAGES PNGs with a ``data.val`` of as many
+    more, ``--max-steps`` FASA_CLI_STEPS, 2 epochs: each epoch's FASA val
+    pass and dynamic sampling run (the clustering's seconds at 1203
+    classes logged), ``prob_list`` as built after epoch 0 and moved after
+    epoch 1; K1's and K2's launches from 0 on the training steps and on
+    the val passes; ``--resume-from epoch_1.pth`` restores every FASA
+    field bit for bit; ``init_detector`` serves ``latest.pth``."""
+    import iif_torch.engine.detection as engine_mod
+    from iif_torch.cli import train_det
+    from iif_torch.config import Config, parse_cfg_options
+    from iif_torch.detection.fasa import FasaState
+    from iif_torch.detection.inference import (
+        inference_detector,
+        init_detector,
+    )
+    from iif_torch.tools.synthetic_lvis import COCO_SIZES, write_synthetic_lvis
+
+    sizes = [COCO_SIZES[i % 3] for i in range(FASA_CLI_IMAGES)]
+    train = write_synthetic_lvis(str(tmp / "fasa_train"), sizes, NUM_CLASSES,
+                                 seed=10)
+    val = write_synthetic_lvis(str(tmp / "fasa_val"), sizes, NUM_CLASSES,
+                               seed=11)
+    options = [f"data.train.ann_file={train['ann_file']}",
+               f"data.train.img_prefix={train['img_prefix']}",
+               f"data.val.ann_file={val['ann_file']}",
+               f"data.val.img_prefix={val['img_prefix']}",
+               f"data.test.ann_file={val['ann_file']}",
+               f"data.test.img_prefix={val['img_prefix']}",
+               "log_config.tensorboard=False"]
+    config = str(REPO / CASCADE_CONFIG)
+    work = tmp / "fasa_work"
+    argv = [config, "--work-dir", str(work), "--max-steps",
+            str(FASA_CLI_STEPS)]
+    ap_s, probs, probs_before, val_launches = [], [], [], []
+    sampling = engine_mod.fasa_dynamic_sampling
+    val_epoch = engine_mod.DetectionTrainer.fasa_val_epoch
+
+    def timed_sampling(state, up, down):
+        t0 = time.perf_counter()
+        out = sampling(state, up, down)
+        ap_s.append(time.perf_counter() - t0)
+        return out
+
+    def recorded_val(self, state, loader, print_fn=print):
+        before = roi_launches_by_size()
+        probs_before.append([s.prob_list.clone() for s in state.fasa])
+        state = val_epoch(self, state, loader, print_fn)
+        torch.cuda.synchronize()
+        val_launches.append(add_launches(roi_launches_by_size(), before,
+                                         -1))
+        probs.append([s.prob_list.clone() for s in state.fasa])
+        return state
+
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    t0 = time.perf_counter()
+    with patched((engine_mod, "fasa_dynamic_sampling", timed_sampling),
+                 (engine_mod.DetectionTrainer, "fasa_val_epoch",
+                  recorded_val)):
+        trainer, state = train_det.main(argv + [
+            "--cfg-options", *options, "runner.max_epochs=2"])
+    run_s = time.perf_counter() - t0
+    total_by_size = roi_launches_by_size()
+    total = roi_launches()
+    n = 2 * FASA_CLI_STEPS
+    check(state.step == n, f"{n} steps over 2 epochs: {state.step}")
+    check(len(probs) == 2 and len(ap_s) == 6,
+          "a val pass and three stages' sampling an epoch")
+    val_by_size = add_launches(*val_launches)
+    train_by_size = add_launches(total_by_size, val_by_size, -1)
+    on_val = {k: {o: c for o, c in v.items() if c}
+              for k, v in val_by_size.items()}
+    on_train = {k: {o: c for o, c in v.items() if c}
+                for k, v in train_by_size.items()}
+    check(on_val == {"K1": {7: 2 * 3 * FASA_CLI_STEPS}, "K2": {}, "K3": {},
+                     "K4": {}},
+          f"the val passes: one 7x7 K1 a stage a batch: {on_val}")
+    check(on_train == {"K1": {7: 3 * n, 14: 3 * n},
+                       "K2": {7: 3 * n, 14: 3 * n}, "K3": {}, "K4": {}},
+          f"three K1 and K2 a size a step: {on_train}")
+    from iif_torch.ops.roi_align_ml import (
+        grad_launches_by_path,
+        roi_align_ml,
+    )
+    check_vec8("K1 on the FASA CLI path", roi_align_ml.launches_by_path,
+               total["K1"])
+    check_vec8("K2 on the FASA CLI path", grad_launches_by_path,
+               total["K2"])
+    check(all(torch.equal(p, q) for p, q in zip(probs[0], probs_before[0])),
+          "prob_list as built after epoch 0 (its losses start as t0)")
+    moved = [int((a != b).sum()) for a, b in zip(probs[1], probs[0])]
+    check(any(moved), f"prob_list moved after epoch 1: {moved}")
+
+    ckpts = work / "checkpoints"
+    saved = torch.load(ckpts / "epoch_1.pth", map_location="cpu",
+                       weights_only=True)["fasa"]
+    _, restored = train_det.main(argv + [
+        "--resume-from", str(ckpts / "epoch_1.pth"), "--cfg-options",
+        *options, "runner.max_epochs=1"])
+    for got, want in zip(restored.fasa, saved):
+        for name in FasaState._fields:
+            check(torch.equal(getattr(got, name).cpu(), want[name]),
+                  f"--resume-from restores FASA's {name}")
+    cfg = Config.fromfile(config)
+    cfg.merge_from_options(parse_cfg_options(options))
+    det = init_detector(cfg, str(ckpts / "latest.pth"), device="cuda")
+    served = inference_detector(det, str(Path(val["img_prefix"]) /
+                                         "train2017" / "000000000001.png"),
+                                masks=False)
+    check(served["boxes"].shape == (300, 4) and served["valid"].any(),
+          "the FASA checkpoint serves 300 detections")
+    return {"run_s": run_s, "steps": n,
+            "dynamic_sampling_s": ap_s, "classes": NUM_CLASSES,
+            "prob_list_moved_by_stage": moved,
+            "prob_list_after": [[float(p.min()), float(p.mean()),
+                                 float(p.max())] for p in probs[1]],
+            "launches_train": on_train, "launches_val": on_val,
+            "launches_total": total}
+
+
+def fasa_r50_phase(torch, np):
+    """``fasa_iif_r50_rfs_cos_norm_2x.py`` as it stands (MaskRCNN R50,
+    normed heads, grad clip 35, FASA) through ``trainer_from_config`` at
+    b4: a warm-up step and FASA_R50_STEPS timed ones at epoch 1 (the
+    virtual-feature loss on), K1's and K2's launches from 0."""
+    trainer, state = fasa_trainer(torch, np, FASA_R50_CONFIG)
+    m = trainer.model
+    check(type(m.roi_head.bbox_head.fc_cls).__name__ == "NormedLinear"
+          and m.roi_head.mask_head.predictor == "normed",
+          "the R50 FASA config's normed heads")
+    batch = synthetic_train_batch(np, torch, "cuda")
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state, times, rows = timed_fasa_steps(
+        torch, trainer, state, batch, ((1, 1 + FASA_R50_STEPS, 1),))
+    n = 1 + FASA_R50_STEPS
+    by_size = roi_launches_by_size()
+    launches = {k: by_size[k] for k in ("K1", "K2")}
+    for k in ("K1", "K2"):
+        check(launches[k] == {7: n, 14: n}, f"{k} once a size a step")
+    check(not by_size["K3"] and not by_size["K4"], "no K3 or K4")
+    return {"steps": n, "step_ms_epoch1": spread(times[1]),
+            "grad_norms": [r["grad_norm"] for r in rows],
+            "last_loss": rows[-1]["loss"], "launches": launches,
+            "launches_by_size": by_size,
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
 def main() -> int:
     import torch
 
@@ -3228,6 +3707,7 @@ def main() -> int:
         log("ptxas", json.dumps(fn))
 
     import iif_torch.detection.c4 as c4_mod
+    import iif_torch.detection.cascade as cascade_mod
     import iif_torch.detection.detector as detector_mod
 
     kern = kernel_phase(torch, np)
@@ -3238,9 +3718,19 @@ def main() -> int:
     log("serving", json.dumps({k: v for k, v in serve.items()
                                if k not in ("detector", "image")}),
         "card", card)
+    # the cascade's requests are timed before any torch.profiler use too
+    cascade = cascade_serving_phase(torch, np)
+    cascade_k1 = cascade.pop("k1")
+    log("cascade serving", json.dumps({k: v for k, v in cascade.items()
+                                       if k not in ("detector", "image")}),
+        "card", card)
     prof = profile_phase(torch, serve.pop("detector"), serve.pop("image"),
                          detector_mod, STAGES, "roi_align_ml")
     log("profile b1", json.dumps(prof))
+    cascade_prof = profile_phase(torch, cascade.pop("detector"),
+                                 cascade.pop("image"), cascade_mod,
+                                 CASCADE_STAGES, "roi_align_ml")
+    log("cascade profile b1", json.dumps(cascade_prof))
     c4 = c4_serving_phase(torch, np)
     log("C4 serving", json.dumps({k: v for k, v in c4.items()
                                   if k not in ("detector", "image")}),
@@ -3280,6 +3770,14 @@ def main() -> int:
     log("augmentation", json.dumps(aug), "card", card)
     families = family_phase(torch, np)
     log("classifier families", json.dumps(families), "card", card)
+    cascade_train = cascade_training_phase(torch, np)
+    ctrain_k1, ctrain_k2 = cascade_train.pop("k1"), cascade_train.pop("k2")
+    log("cascade FASA training", json.dumps(cascade_train), "card", card)
+    with tempfile.TemporaryDirectory() as tmp:
+        fasa_cli = fasa_cli_phase(torch, np, Path(tmp))
+    log("FASA dynamic runner", json.dumps(fasa_cli), "card", card)
+    fasa_r50 = fasa_r50_phase(torch, np)
+    log("FASA MaskRCNN R50", json.dumps(fasa_r50), "card", card)
     eval_k1 = {}
     for o, rois in ((7, eval_rois7), (14, eval_rois14)):
         for dt in (torch.float32, torch.bfloat16):
@@ -3429,7 +3927,43 @@ def main() -> int:
                 kernels.append(path_row(
                     rows, o, key, suffix,
                     {path_name: path_launches[key].get(o, 0)}, where))
+    # K1 on the cascade serving path's stage-3 and mask RoIs, K1 and K2 on
+    # the cascade training step's stage-3 RoIs, each with its path's
+    # launches
+    serve_by_size = {o: sum(c.get(o, 0) for c in cascade["launches"].values())
+                     for o in (7, 14)}
+    cascade_rows = {(7, d): cascade_k1[("stage2", d)] for d in (
+        "float32", "bfloat16")}
+    cascade_rows.update({(14, d): cascade_k1[("mask", d)] for d in (
+        "float32", "bfloat16")})
+    for o in (7, 14):
+        kernels.append(path_row(
+            cascade_rows, o, "K1", "cascade",
+            {"cascade_serving": serve_by_size[o]},
+            "on the 800x1344 canvas's levels, a served request's own maps "
+            "and " + ("stage-3 RoIs" if o == 7 else "detections")))
+        if o == 7:
+            kernels[-1]["stages_max_abs_err"] = {
+                f"{st}_{d}": cascade_k1[(st, d)]["max_abs_err"]
+                for st in ("stage0", "stage1", "stage2")
+                for d in ("float32", "bfloat16")}
+        for key, rows in (("K1", ctrain_k1), ("K2", ctrain_k2)):
+            kernels.append(path_row(
+                rows, o, key, "cascade_train",
+                {"cascade_training": cascade_train["launches"][key][o]},
+                "on the 800x1344 canvas's levels, a training step's own "
+                "maps and stage-3 RoIs"))
+    # the FASA family's paths: each row gets its own output size's count
+    fasa_paths = {"cascade_serving": cascade["launches_by_size"],
+                  "cascade_training": cascade_train["launches_by_size"],
+                  "fasa_train_cli": fasa_cli["launches_train"],
+                  "fasa_val": fasa_cli["launches_val"],
+                  "fasa_r50": fasa_r50["launches_by_size"]}
     for row in kernels:
+        side = int(re.search(r"_(\d+)x\1(_|$)", row["name"]).group(1))
+        for path, counts in fasa_paths.items():
+            row["launches_by_path"].setdefault(
+                path, counts[KERNEL_OF[row["replaces"]]].get(side, 0))
         row["launches_by_path"]["classification_cifar"] = \
             cls_cifar["launches"][KERNEL_OF[row["replaces"]]]
         row["launches_by_path"]["classification_imagenet_lt"] = \

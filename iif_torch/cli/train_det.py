@@ -17,18 +17,26 @@ classification loss and ``trainer_from_config``'s trainer; overlays
 momentum, scheduler, step, epoch), then ``--load-from`` (weights); runs
 the epochs (``--max-steps`` caps each) and writes a checkpoint at
 ``checkpoint_config.interval`` and after the last epoch
-(``iif_torch/utils/checkpoint.py``); after each epoch that
-``evaluation.interval`` divides, it evaluates the model on ``data.val``
-as ``cli/test_det.py`` does and prints ``eval <metric> {...}`` for each
-of ``evaluation.metric`` (the JAX CLI's ``_run_eval``).
+(``iif_torch/utils/checkpoint.py``, FASA's state included); after each
+epoch that ``evaluation.interval`` divides, it evaluates the model on
+``data.val`` as ``cli/test_det.py`` does and prints ``eval <metric>
+{...}`` for each of ``evaluation.metric`` (the JAX CLI's ``_run_eval``).
+
+With ``fasa_cfg`` it trains with FASA, its state built from the train
+set's instance counts (one copy a cascade stage). Under
+``runner.type=EpochBasedDynamicRunner`` (the dynamic runner) each epoch
+is followed by the FASA val pass over ``data.val`` through the train
+pipeline (``--max-steps`` caps it too; without ``data.val``, 50 batches
+of the train loader, with JAX's warning) and dynamic sampling, before the
+checkpoint.
 
 What it cannot run it refuses with ``NotImplementedError`` before
-training: FASA's dynamic runner, EMA and other custom hooks (the YOLOX
-mode switch among them), ``--tp``, ``--selectp``, ``pipeline.uint8=
-False``, ``pipeline.pack_masks=False``, and an evaluation the run would
-reach with the metric ``PQ``; the loss, the
-detector, the pipeline and the trainer refuse their own unported knobs
-(Seesaw, other families, extras, ...).
+training: EMA and other custom hooks (the YOLOX mode switch among them),
+``--tp``, ``--selectp``, ``pipeline.uint8=False``,
+``pipeline.pack_masks=False``, and an evaluation the run would reach
+with the metric ``PQ``; the loss, the detector, the pipeline and the
+trainer refuse their own unported knobs (Seesaw, other families,
+extras, ...).
 """
 from __future__ import annotations
 
@@ -88,9 +96,6 @@ def refuse_unported(cfg: Config, args: argparse.Namespace,
         "--tp (tensor parallelism)":
             (args.tp or cfg.get("parallel", {}).get("tp", 1)) > 1,
         "--selectp (decoupled fine-tuning)": bool(args.selectp),
-        "runner EpochBasedDynamicRunner (FASA)":
-            cfg.runner.get("type") == "EpochBasedDynamicRunner",
-        "fasa_cfg": cfg.get("fasa_cfg") is not None,
         f"custom_hooks {hooks} (EMA, YOLOX mode switch)": bool(hooks),
         "pipeline uint8=False": not cfg.get("pipeline", {}).get("uint8",
                                                                 True),
@@ -143,6 +148,24 @@ def _run_eval(cfg: Config, trainer: engine.DetectionTrainer,
                                      cfg.model.get("with_mask", True))
     return test_det.evaluate_metrics(val_ds, cfg, results, metrics,
                                      prefix=("eval",))
+
+
+def fasa_train_fallback(loader: DetectionLoader, n_batches: int = 50
+                        ) -> "_Capped":
+    """The dynamic runner's val pass without a ``data.val`` split
+    (``iif_tpu/cli/train_det.py:80-97``): ``n_batches`` of the train
+    loader, with JAX's warning."""
+    import warnings
+
+    warnings.warn(
+        "FASA DynamicRunner: no data.val split configured — falling "
+        "back to a 50-batch slice of the TRAIN loader for the "
+        "dynamic-sampling pass. This changes the algorithm: the "
+        "adaptive signal comes from train loss instead of val loss "
+        "(reference workflow [('train',1),('val',1)] uses the val "
+        "split). Configure data.val to match the reference.",
+        UserWarning, stacklevel=2)
+    return _Capped(loader, n_batches)
 
 
 class _Capped:
@@ -201,7 +224,12 @@ def main(argv: Optional[List[str]] = None
     trainer = engine.trainer_from_config(
         cfg, loss_cls, steps_per_epoch=max(len(loader), 1), seed=seed,
         device=device)
-    state = trainer.init_state()
+    fasa_cfg = cfg.get("fasa_cfg")
+    state = trainer.init_state(None if fasa_cfg is None else
+                               engine.init_fasa_states(
+                                   trainer.model,
+                                   train_ds.class_instance_counts(),
+                                   fasa_cfg, trainer.device))
     if cfg.model.get("pretrained_backbone"):
         load_pretrained_backbone(trainer.model,
                                  cfg.model["pretrained_backbone"])
@@ -220,8 +248,21 @@ def main(argv: Optional[List[str]] = None
     interval = cfg.get("checkpoint_config", {}).get("interval", 1)
     eval_cfg = cfg.get("evaluation", {})
     eval_interval = eval_cfg.get("interval", 0)
+    dynamic = cfg.runner.get("type") == "EpochBasedDynamicRunner"
+    fasa_val_loader = None
+    if dynamic and state.fasa is not None:
+        # the val set through the TRAIN pipeline, as the reference's
+        # workflow [('train', 1), ('val', 1)] builds it
+        if "val" in dcfg:
+            fasa_val_loader = DetectionLoader(
+                build_dataset({k: v for k, v in dcfg["val"].items()
+                               if k != "oversample_thr"}),
+                loader.pipeline, batch_size=loader.batch_size,
+                oversample_thr=0.0, seed=seed)
+        else:
+            fasa_val_loader = fasa_train_fallback(loader)
     print(f"Start training: {max_epochs} epochs, {len(loader)} "
-          f"steps/epoch on {device}")
+          f"steps/epoch on {device}, dynamic={dynamic}")
     try:
         for epoch in range(start_epoch, max_epochs):
             state, _ = trainer.train_one_epoch(
@@ -229,6 +270,10 @@ def main(argv: Optional[List[str]] = None
                 else loader, epoch,
                 print_freq=cfg.get("log_config", {}).get("interval", 50),
                 log_writer=log_writer)
+            if fasa_val_loader is not None:
+                state = trainer.fasa_val_epoch(
+                    state, _Capped(fasa_val_loader, args.max_steps)
+                    if args.max_steps else fasa_val_loader)
             if (epoch + 1) % interval == 0 or epoch == max_epochs - 1:
                 save_checkpoint(work_dir, epoch + 1, trainer.model, state,
                                 cfg.pretty_text())

@@ -1,5 +1,6 @@
 """Shared2FC bbox head, its training targets and loss, and its inference
-decode: port of ``iif_tpu/detection/bbox_head.py`` (``Shared2FCBBoxHead``,
+decode: port of ``iif_tpu/detection/bbox_head.py`` (``Shared2FCBBoxHead``
+with the linear or the normed classifier and ``cls_only``,
 ``BBoxTargets``, ``bbox_targets`` with the random sampler,
 ``bbox_head_loss`` with the L1 box loss, ``bbox_head_get_bboxes``) under
 mmdet's names ``shared_fcs.{0,1}``, ``fc_cls``, ``fc_reg``.
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from iif_torch.models.layers import NormedLinear
 from iif_torch.ops.assigner import max_iou_assign
 from iif_torch.ops.boxes import bbox2delta, delta2bbox
 from iif_torch.ops.nms import _take, multiclass_nms
@@ -28,32 +30,52 @@ BBOX_TARGET_STDS = (0.1, 0.1, 0.2, 0.2)
 
 
 class Shared2FCBBoxHead(nn.Module):
-    """``cls_init`` is the initialiser of ``fc_cls`` in fresh weights
+    """``cls_predictor`` is ``"linear"`` or ``"normed"`` (the cosine
+    ``NormedLinear`` at ``cls_temperature``); ``reg_class_agnostic``
+    regresses one box a RoI instead of one a class. ``cls_init`` is the
+    initialiser of a linear ``fc_cls`` in fresh weights
     (``detection/init.py::fresh_init_``): ``("normal", std)`` or
     ``("constant", value)``, with an optional bias value third, as the
     JAX head takes it."""
 
     def __init__(self, num_classes: int, in_channels: int = 256,
                  roi_size: int = 7, fc_out_channels: int = 1024,
-                 cls_init: tuple = ("normal", 0.01)):
+                 cls_init: tuple = ("normal", 0.01),
+                 cls_predictor: str = "linear",
+                 cls_temperature: float = 8.0,
+                 reg_class_agnostic: bool = False):
         super().__init__()
+        if cls_predictor not in ("linear", "normed"):
+            raise NotImplementedError(
+                f"cls_predictor {cls_predictor!r} is not ported")
         self.num_classes = num_classes
         self.cls_init = tuple(cls_init)
+        self.reg_class_agnostic = reg_class_agnostic
         self.shared_fcs = nn.ModuleList([
             nn.Linear(in_channels * roi_size * roi_size, fc_out_channels),
             nn.Linear(fc_out_channels, fc_out_channels)])
-        self.fc_cls = nn.Linear(fc_out_channels, num_classes + 1)
-        self.fc_reg = nn.Linear(fc_out_channels, num_classes * 4)
+        if cls_predictor == "normed":
+            self.fc_cls = NormedLinear(fc_out_channels, num_classes + 1,
+                                       cls_temperature)
+        else:
+            self.fc_cls = nn.Linear(fc_out_channels, num_classes + 1)
+        self.fc_reg = nn.Linear(
+            fc_out_channels, 4 if reg_class_agnostic else num_classes * 4)
 
     def forward(self, roi_feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """roi_feats (R, 7, 7, C) -> (cls_score (R, C+1), bbox_pred
-        (R, C*4), embedding (R, 1024))."""
+        (R, C*4 or 4), embedding (R, 1024))."""
         x = roi_feats.permute(0, 3, 1, 2).reshape(roi_feats.shape[0], -1)
         x = x.float()
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
         return self.fc_cls(x), self.fc_reg(x), x
+
+    def cls_only(self, embedding: torch.Tensor) -> torch.Tensor:
+        """The classifier alone on 1024-d embeddings (FASA's virtual
+        features, ``fasa_bbox_head.py:283-287``)."""
+        return self.fc_cls(embedding)
 
 
 class BBoxTargets(NamedTuple):
@@ -76,16 +98,23 @@ def bbox_targets(
     pos_fraction: float = 0.25,
     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    pos_iou_thr: float = 0.5,
+    neg_iou_thr: float = 0.5,
+    min_pos_iou: float = 0.5,
+    add_gt_as_proposals: bool = True,
 ) -> BBoxTargets:
     """The gt boxes join the proposals (``add_gt_as_proposals``), MaxIoU
-    assigns them at IoU 0.5 without low-quality matching, the random
-    sampler picks
-    ``num_samples`` per image, positives first (``bbox_head.py:206-305``).
-    ``noise`` = the sampler's (pos, neg) draws, each (B, G + P)."""
+    assigns them at the IoU thresholds without low-quality matching, the
+    random sampler picks ``num_samples`` per image, positives first
+    (``bbox_head.py:206-305``). ``noise`` = the sampler's (pos, neg)
+    draws, each (B, G + P), or (B, P) without the gt boxes."""
     g = gt_boxes.shape[1]
-    props = torch.cat([gt_boxes, proposals], 1)
-    pvalid = torch.cat([gt_valid, proposal_valid], 1)
-    assigned, _ = max_iou_assign(props, gt_boxes, gt_valid, 0.5, 0.5, 0.5,
+    props, pvalid = proposals, proposal_valid
+    if add_gt_as_proposals:
+        props = torch.cat([gt_boxes, props], 1)
+        pvalid = torch.cat([gt_valid, pvalid], 1)
+    assigned, _ = max_iou_assign(props, gt_boxes, gt_valid, pos_iou_thr,
+                                 neg_iou_thr, min_pos_iou,
                                  match_low_quality=False)
     assigned = torch.where(pvalid, assigned, torch.full_like(assigned, -1))
     pos_noise, neg_noise = noise if noise is not None else (None, None)

@@ -1,16 +1,19 @@
-"""Weights carried across from the JAX package: ``maskrcnn_state_from_jax``
-and ``c4_state_from_jax`` turn an ``iif_tpu`` MaskRCNN or C4FasterRCNN
-(params, batch_stats) pytree of numpy arrays into this port's mmdet-named
-state_dict.
+"""Weights carried across from the JAX package: ``maskrcnn_state_from_jax``,
+``cascade_state_from_jax`` and ``c4_state_from_jax`` turn an ``iif_tpu``
+MaskRCNN, CascadeMaskRCNN or C4FasterRCNN (params, batch_stats) pytree of
+numpy arrays into this port's mmdet-named state_dict.
 
 It is the inverse of ``iif_tpu.detection.pretrained_det.
 convert_mmdet_maskrcnn``: HWIO -> OIHW convolutions, Dense (in, out) ->
 Linear (out, in), BN scale/bias/mean/var -> weight/bias/running_mean/
 running_var, the HWC -> CHW permutation of the first shared FC undone, and
-the flip + transpose of the mask head's transposed conv undone. Every one
-of these maps is linear, so a gradient pytree of the params converts the
-same way (pass zero ``batch_stats``): the training tests compare JAX's
-gradients with the port's under torch names through it.
+the flip + transpose of the mask head's transposed conv undone. The
+normed predictors keep JAX's (in, out) kernels: ``NormedConv2d``'s as it
+stands, ``NormedLinear``'s less the 1 that JAX's forward subtracts (its
+kernel is drawn from U(0, 2)). Every map but that offset is linear, so a
+gradient pytree of the params converts the same way with
+``gradients=True`` (pass zero ``batch_stats``): the training tests
+compare JAX's gradients with the port's under torch names through it.
 """
 from __future__ import annotations
 
@@ -81,11 +84,7 @@ def _resnet(sd, prefix: str, params, stats) -> None:
                     _bn(sd, f"{base}.{mod}", q, stats[name][mod])
 
 
-def maskrcnn_state_from_jax(params: Dict[str, Any],
-                            batch_stats: Dict[str, Any]
-                            ) -> Dict[str, torch.Tensor]:
-    """``iif_tpu`` MaskRCNN variables -> mmdet-named state_dict."""
-    sd: Dict[str, torch.Tensor] = {}
+def _trunk(sd, params, batch_stats) -> None:
     _resnet(sd, "backbone", params["backbone"], batch_stats["backbone"])
     for name, p in params["neck"].items():
         i = name.rsplit("_", 1)[-1]
@@ -93,20 +92,62 @@ def maskrcnn_state_from_jax(params: Dict[str, Any],
         _leaf(sd, f"neck.{kind}.{i}.conv", p, _conv)
     for name, p in params["rpn_head"].items():
         _leaf(sd, f"rpn_head.{name}", p, _conv)
-    for name, p in params["bbox_head"].items():
+
+
+def _bbox_head(sd, prefix: str, params, gradients: bool) -> None:
+    for name, p in params.items():
         if name == "shared_fc1":
-            _leaf(sd, "roi_head.bbox_head.shared_fcs.0", p, _fc_first_shared)
+            _leaf(sd, prefix + ".shared_fcs.0", p, _fc_first_shared)
         elif name == "shared_fc2":
-            _leaf(sd, "roi_head.bbox_head.shared_fcs.1", p, _fc)
+            _leaf(sd, prefix + ".shared_fcs.1", p, _fc)
+        elif name == "fc_cls" and "bias" not in p:     # NormedLinear
+            k = np.asarray(p["kernel"])
+            sd[prefix + ".fc_cls.weight"] = _t(
+                k if gradients else k - np.float32(1.0))
         else:
-            _leaf(sd, f"roi_head.bbox_head.{name}", p, _fc)
-    for name, p in params.get("mask_head", {}).items():
+            _leaf(sd, f"{prefix}.{name}", p, _fc)
+
+
+def _mask_head(sd, prefix: str, params) -> None:
+    for name, p in params.items():
         if name == "upsample":
-            _leaf(sd, "roi_head.mask_head.upsample", p, _deconv)
+            _leaf(sd, prefix + ".upsample", p, _deconv)
         elif name == "conv_logits":
-            _leaf(sd, "roi_head.mask_head.conv_logits", p, _conv)
+            # NormedConv2d's (C_in, num_classes) kernel as it stands
+            _leaf(sd, prefix + ".conv_logits", p,
+                  _t if np.ndim(p["kernel"]) == 2 else _conv)
         else:                                   # conv{i}
-            _leaf(sd, f"roi_head.mask_head.convs.{name[4:]}.conv", p, _conv)
+            _leaf(sd, f"{prefix}.convs.{name[4:]}.conv", p, _conv)
+
+
+def maskrcnn_state_from_jax(params: Dict[str, Any],
+                            batch_stats: Dict[str, Any],
+                            gradients: bool = False
+                            ) -> Dict[str, torch.Tensor]:
+    """``iif_tpu`` MaskRCNN variables -> mmdet-named state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _trunk(sd, params, batch_stats)
+    _bbox_head(sd, "roi_head.bbox_head", params["bbox_head"], gradients)
+    _mask_head(sd, "roi_head.mask_head", params.get("mask_head", {}))
+    return sd
+
+
+def cascade_state_from_jax(params: Dict[str, Any],
+                           batch_stats: Dict[str, Any],
+                           gradients: bool = False
+                           ) -> Dict[str, torch.Tensor]:
+    """``iif_tpu`` CascadeMaskRCNN variables (``bbox_head_{i}``,
+    ``mask_head_{i}``) -> mmdet's cascade names (``roi_head.bbox_head.
+    {i}.*``, ``roi_head.mask_head.{i}.*``). The JAX package has no mmdet
+    cascade converter, so this is the one direction."""
+    sd: Dict[str, torch.Tensor] = {}
+    _trunk(sd, params, batch_stats)
+    for name, p in params.items():
+        kind, _, i = name.rpartition("_")
+        if kind == "bbox_head":
+            _bbox_head(sd, f"roi_head.bbox_head.{i}", p, gradients)
+        elif kind == "mask_head":
+            _mask_head(sd, f"roi_head.mask_head.{i}", p)
     return sd
 
 

@@ -1,6 +1,7 @@
 """MaskRCNN R50-FPN, its training loss and its inference pass: port of
 ``iif_tpu/detection/detector.py`` (``MaskRCNN`` in its resnet + fpn +
-shared2fc + FCN-mask configuration, ``DetTrainCfg``, ``DetTestCfg``,
+shared2fc + FCN-mask configuration with the linear or the cosine-normed
+predictors, FASA in its loss, ``DetTrainCfg``, ``DetTestCfg``,
 ``normalize_if_uint8``, ``unpack_mask_bits``, ``resolve_gt_masks``,
 ``make_anchor_generator``, ``fpn_shapes``, ``maskrcnn_loss``,
 ``maskrcnn_simple_test``).
@@ -31,6 +32,7 @@ from iif_torch.detection.bbox_head import (
     bbox_head_loss,
     bbox_targets,
 )
+from iif_torch.detection.fasa import fasa_aug_loss, fasa_update
 from iif_torch.detection.mask_head import (
     FCNMaskHead,
     mask_head_loss,
@@ -84,29 +86,28 @@ class StandardRoIHead(nn.Module):
     names."""
 
     def __init__(self, num_classes: int, with_mask: bool,
-                 cls_init: tuple = ("normal", 0.01)):
-        super().__init__()
-        self.bbox_head = Shared2FCBBoxHead(num_classes, cls_init=cls_init)
-        self.mask_head = FCNMaskHead(num_classes) if with_mask else None
-
-
-class MaskRCNN(nn.Module):
-    """Takes the keyword arguments of a ``configs/`` model dict.
-    ``frozen_stages`` and ``norm_eval`` shape the trunk's training;
-    ``cls_init`` initialises ``fc_cls`` in fresh weights (``fresh_init_``,
-    as the JAX package's ``model.init``); ``compute_dtype`` is the trunk's
-    (``"bfloat16"`` in the IIF configs)."""
-
-    def __init__(self, num_classes: int = 1203, depth: int = 50,
-                 with_mask: bool = True, frozen_stages: int = 1,
-                 norm_eval: bool = True, compute_dtype=None,
+                 cls_init: tuple = ("normal", 0.01),
                  cls_predictor: str = "linear", mask_predictor: str = "conv",
-                 cls_init: tuple = ("normal", 0.01)):
+                 cls_temperature: float = 8.0,
+                 mask_temperature: float = 20.0):
         super().__init__()
-        if cls_predictor != "linear" or mask_predictor != "conv":
-            raise NotImplementedError(
-                "the port serves the linear classifier and conv mask "
-                f"predictor only, got {cls_predictor!r}/{mask_predictor!r}")
+        self.bbox_head = Shared2FCBBoxHead(
+            num_classes, cls_init=cls_init, cls_predictor=cls_predictor,
+            cls_temperature=cls_temperature)
+        self.mask_head = FCNMaskHead(
+            num_classes, predictor=mask_predictor,
+            temperature=mask_temperature) if with_mask else None
+
+
+class TwoStageTrunk(nn.Module):
+    """The ResNet + FPN + RPN trunk the two-stage detectors share, and
+    their anchors. ``frozen_stages`` and ``norm_eval`` shape the trunk's
+    training; ``compute_dtype`` is the trunk's (``"bfloat16"`` in the IIF
+    configs)."""
+
+    def __init__(self, num_classes: int, depth: int, with_mask: bool,
+                 frozen_stages: int, norm_eval: bool, compute_dtype):
+        super().__init__()
         if isinstance(compute_dtype, str):
             compute_dtype = _DTYPES[compute_dtype]
         self.num_classes = num_classes
@@ -115,7 +116,6 @@ class MaskRCNN(nn.Module):
                                norm_eval, compute_dtype)
         self.neck = FPN(compute_dtype=compute_dtype)
         self.rpn_head = RPNHead(num_anchors=3, compute_dtype=compute_dtype)
-        self.roi_head = StandardRoIHead(num_classes, with_mask, cls_init)
         self._anchors: Dict[Any, list] = {}
 
     def extract_feat(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -149,6 +149,30 @@ class MaskRCNN(nn.Module):
                 torch.from_numpy(np.concatenate(gen.valid_flags(
                     shapes, tuple(img_hw)))).to(device))
         return self._anchors[key]
+
+
+class MaskRCNN(TwoStageTrunk):
+    """Takes the keyword arguments of a ``configs/`` model dict.
+    ``cls_predictor`` is ``"linear"`` or ``"normed"`` (``NormedLinear`` at
+    ``cls_temperature``), ``mask_predictor`` ``"conv"`` or ``"normed"``
+    (``NormedConv2d`` at ``mask_temperature``); ``cls_init`` initialises
+    a linear ``fc_cls`` in fresh weights (``fresh_init_``, as the JAX
+    package's ``model.init``)."""
+
+    def __init__(self, num_classes: int = 1203, depth: int = 50,
+                 with_mask: bool = True, frozen_stages: int = 1,
+                 norm_eval: bool = True, compute_dtype=None,
+                 cls_predictor: str = "linear", mask_predictor: str = "conv",
+                 cls_temperature: float = 8.0, mask_temperature: float = 20.0,
+                 cls_init: tuple = ("normal", 0.01)):
+        super().__init__(num_classes, depth, with_mask, frozen_stages,
+                         norm_eval, compute_dtype)
+        self.roi_head = StandardRoIHead(
+            num_classes, with_mask, cls_init, cls_predictor, mask_predictor,
+            cls_temperature, mask_temperature)
+
+    def forward_cls_only(self, embedding: torch.Tensor) -> torch.Tensor:
+        return self.roi_head.bbox_head.cls_only(embedding)
 
 
 class DetTrainCfg(NamedTuple):
@@ -263,21 +287,31 @@ def maskrcnn_loss(
     cfg: DetTrainCfg = DetTrainCfg(),
     generator: Optional[torch.Generator] = None,
     noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+    fasa_state=None,
+    fasa_cfg: Optional[Dict[str, float]] = None,
+    epoch: int = 0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, Any]]:
     """Forward and every loss of one batch (``detector.py:445-815`` for
-    the resnet + fpn + shared2fc + FCN-mask body).
+    the resnet + fpn + shared2fc + FCN-mask body, FASA included).
 
     batch: ``image`` (B, H, W, 3) uint8 or normalised float,
     ``gt_boxes`` (B, G, 4), ``gt_labels`` (B, G), ``gt_valid`` (B, G),
     and ``gt_masks`` (B, G, H/s, W/s) or ``gt_masks_packed`` (B, G, H/s,
     W/s/8) with s = ``cfg.mask_gt_stride``. The samplers draw their noise
     from ``generator``, or take it from ``noise``: ``{"rpn": (pos, neg)}``
-    each (B, A_tot) and ``{"rcnn": (pos, neg)}`` each (B, G + P).
+    each (B, A_tot), ``{"rcnn": (pos, neg)}`` each (B, G + P) and
+    ``{"fasa": (uniform (C,), normal (C, 1024))}``.
+
+    With a ``fasa_state`` (``detection/fasa.py``) the positives'
+    embeddings update it and, from ``epoch`` 1, the virtual features' CE
+    through ``fc_cls`` joins ``loss_cls`` (``fasa_cfg``: ``decay_ratio``,
+    ``loss_aug_weight``).
 
     Returns (total, losses, aux): ``losses`` has the JAX package's keys
     (``loss_cls``, ``loss_bbox``, ``loss_rpn_cls``, ``loss_rpn_bbox``,
-    ``loss_mask``); ``aux`` is empty: the JAX package's carries the BN
-    statistics, which ``norm_eval`` leaves as they are."""
+    ``loss_mask``); ``aux`` holds the new ``fasa_state`` when one was
+    given (the JAX package's also carries the BN statistics, which
+    ``norm_eval`` leaves as they are)."""
     noise = noise or {}
     images = batch["image"]
     b, img_h, img_w, _ = images.shape
@@ -315,11 +349,21 @@ def maskrcnn_loss(
     with record_function("bbox_roi_align"):
         roi_feats = SingleRoIExtractor((7, 7))(nhwc, rois5)
     with record_function("bbox_head_loss"):
-        cls_score, bbox_pred, _ = model.roi_head.bbox_head(roi_feats)
+        cls_score, bbox_pred, embedding = model.roi_head.bbox_head(
+            roi_feats)
         l_cls, l_bbox = bbox_head_loss(cls_score, bbox_pred, tgts, loss_cls,
                                        model.num_classes)
     losses = {"loss_cls": l_cls, "loss_bbox": l_bbox,
               "loss_rpn_cls": l_rpn_cls, "loss_rpn_bbox": l_rpn_bbox}
+    aux: Dict[str, Any] = {}
+    if fasa_state is not None:
+        with record_function("fasa"):
+            aux["fasa_state"], l_aug = fasa_step(
+                fasa_state, embedding, tgts.labels.reshape(-1),
+                tgts.bbox_weights.reshape(-1), model.forward_cls_only,
+                loss_cls, fasa_cfg, epoch, generator, noise.get("fasa"))
+        if l_aug is not None:
+            losses["loss_cls"] = losses["loss_cls"] + l_aug
 
     if model.with_mask:
         # positives lead each image's slate
@@ -341,7 +385,28 @@ def maskrcnn_loss(
                 mask_feats, cls_idx)
             losses["loss_mask"] = mask_head_loss(mask_pred, mask_tgt, pos_w)
 
-    return sum(losses.values()), losses, {}
+    return sum(losses.values()), losses, aux
+
+
+def fasa_step(state, embedding: torch.Tensor, labels: torch.Tensor,
+              pos_weight: torch.Tensor, cls_only, loss_cls,
+              fasa_cfg: Optional[Dict[str, float]], epoch: int,
+              generator: Optional[torch.Generator] = None,
+              noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> Tuple[Any, Optional[torch.Tensor]]:
+    """One head's FASA work in a training step (``detector.py:709-725``):
+    the EMA statistics from the positives' embeddings, then from ``epoch``
+    1 the virtual features' CE through ``cls_only``. Returns the new state
+    and that loss (None before epoch 1)."""
+    fcfg = fasa_cfg or {}
+    state = fasa_update(state, embedding, labels, pos_weight,
+                        decay_ratio=fcfg.get("decay_ratio", 0.1))
+    if epoch < 1:
+        return state, None
+    return state, fasa_aug_loss(
+        state, cls_only, loss_cls,
+        loss_aug_weight=fcfg.get("loss_aug_weight", 0.1),
+        generator=generator, noise=noise)
 
 
 @torch.inference_mode()
@@ -411,11 +476,17 @@ def maskrcnn_simple_test(
 
 
 def build_detector(model_cfg: Dict[str, Any]) -> nn.Module:
-    """Config dict (``cfg.model``) -> ``MaskRCNN`` or ``C4FasterRCNN``
-    (``iif_tpu/detection/__init__.py``). Other families are not ported."""
+    """Config dict (``cfg.model``) -> ``MaskRCNN``, ``CascadeMaskRCNN``
+    (type ``CascadeMaskRCNN`` or ``CascadeRCNN``, as the JAX registry
+    takes both) or ``C4FasterRCNN`` (``iif_tpu/detection/__init__.py``).
+    Other families are not ported."""
     kw = dict(model_cfg)
     kind = kw.pop("type", "MaskRCNN")
     kw.pop("pretrained_backbone", None)
+    if kind in ("CascadeMaskRCNN", "CascadeRCNN"):
+        from iif_torch.detection.cascade import CascadeMaskRCNN
+
+        return CascadeMaskRCNN(**kw)
     if kind == "FasterRCNNC4":
         from iif_torch.detection.c4 import C4FasterRCNN
 

@@ -9,12 +9,17 @@ parameter and BN statistic from the family of its flax initialiser.
 - RPN head (``detection/rpn.py:30``): ``normal(0.01)``, bias 0.
 - Shared2FC bbox head (``detection/bbox_head.py:69-89``): the shared FCs
   flax's ``Dense`` default, ``lecun_normal`` (a normal truncated at two
-  standard deviations, variance 1 / fan_in); ``fc_cls`` from ``cls_init``,
-  ``("constant", v)`` or ``("normal", std)`` with an optional third
-  element for its bias; ``fc_reg`` ``normal(0.001)``; biases 0.
+  standard deviations, variance 1 / fan_in); a linear ``fc_cls`` from
+  ``cls_init``, ``("constant", v)`` or ``("normal", std)`` with an
+  optional third element for its bias, a normed one (``NormedLinear``,
+  ``models/layers.py:35-40``) U(0, 2) less the 1 its forward subtracts,
+  so U(-1, 1); ``fc_reg`` ``normal(0.001)``; biases 0.
 - FCN mask head (``detection/mask_head.py:52-73``): convolutions
   ``variance_scaling(2, fan_out, normal)``, the transposed convolution
-  ``lecun_normal``, ``conv_logits`` ``normal(0.001)``, biases 0.
+  ``lecun_normal``, a conv ``conv_logits`` ``normal(0.001)``, a normed
+  one (``NormedConv2d``, ``mask_head.py:31``) ``lecun_normal`` over its
+  (C_in, num_classes) kernel, biases 0.
+- Cascade Mask R-CNN: the trunk and each stage's heads as above.
 - C4 bbox head (``detection/c4.py:51-57``): ``fc_cls`` ``normal(0.01)``,
   ``fc_reg`` ``normal(0.001)``, biases 0.
 
@@ -31,9 +36,10 @@ from torch import nn
 
 from iif_torch.detection.bbox_head import Shared2FCBBoxHead
 from iif_torch.detection.c4 import C4BBoxHead
-from iif_torch.detection.mask_head import FCNMaskHead
+from iif_torch.detection.mask_head import FCNMaskHead, NormedConv2d
 from iif_torch.detection.necks import FPN
 from iif_torch.detection.rpn import RPNHead
+from iif_torch.models.layers import NormedLinear
 from iif_torch.models.resnet import Bottleneck, ResLayer, ResNet
 from iif_torch.utils.init import ParamInit, receptive
 
@@ -82,15 +88,19 @@ def _linear_lecun(init: ParamInit, fc: nn.Linear) -> None:
 def _bbox_head(init: ParamInit, head: Shared2FCBBoxHead) -> None:
     for fc in head.shared_fcs:
         _linear_lecun(init, fc)
-    kind, value = head.cls_init[:2]
-    if kind == "constant":
-        init.const(head.fc_cls.weight, value)
-    elif kind == "normal":
-        init.normal(head.fc_cls.weight, value)
+    if isinstance(head.fc_cls, NormedLinear):
+        init.uniform(head.fc_cls.weight, 1.0)
     else:
-        raise ValueError(f"cls_init must be constant or normal, got {kind!r}")
-    init.bias(head.fc_cls, head.cls_init[2] if len(head.cls_init) > 2
-              else 0.0)
+        kind, value = head.cls_init[:2]
+        if kind == "constant":
+            init.const(head.fc_cls.weight, value)
+        elif kind == "normal":
+            init.normal(head.fc_cls.weight, value)
+        else:
+            raise ValueError(
+                f"cls_init must be constant or normal, got {kind!r}")
+        init.bias(head.fc_cls, head.cls_init[2] if len(head.cls_init) > 2
+                  else 0.0)
     init.normal(head.fc_reg.weight, 0.001)
     init.bias(head.fc_reg)
 
@@ -101,7 +111,11 @@ def _mask_head(init: ParamInit, head: FCNMaskHead) -> None:
     up = head.upsample.weight                 # (in, out, kh, kw)
     init.truncated_normal(up, math.sqrt(1.0 / (up.shape[0] * receptive(up))))
     init.bias(head.upsample)
-    init.normal(head.conv_logits.weight, 0.001)
+    w = head.conv_logits.weight
+    if isinstance(head.conv_logits, NormedConv2d):
+        init.truncated_normal(w, math.sqrt(1.0 / w.shape[0]))
+        return
+    init.normal(w, 0.001)
     init.bias(head.conv_logits)
 
 

@@ -6,7 +6,8 @@ Per-class weights come from a reference-format CSV (row 0 is a background
 placeholder, dropped; the background weight 1.0 is appended) or from class
 frequencies. Training loss: CE(score x weights, label); inference
 activation: softmax(score x weights) in f32. ``DetCrossEntropyLoss`` is
-the plain softmax CE of the stock configs (Faster R-CNN C4).
+the plain softmax CE of the stock configs (Faster R-CNN C4). Each has
+``per_class_sums``, FASA's per-class loss counters.
 """
 from __future__ import annotations
 
@@ -105,6 +106,15 @@ class DetIIFLoss:
         return self.loss_weight * per.sum() / torch.clamp(
             torch.as_tensor(avg_factor, dtype=per.dtype), min=1.0)
 
+    def per_class_sums(self, cls_score: torch.Tensor, labels: torch.Tensor,
+                       weight: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """FASA's cum-loss counters (``fasa_iif_loss.py:154-161``): the
+        per-sample loss summed by label, (C+1,)."""
+        return _per_class_sums(self(cls_score, labels, weight=weight,
+                                    reduction="none"),
+                               labels, self.weights.shape[0])
+
     def get_activation(self, cls_score: torch.Tensor) -> torch.Tensor:
         """Inference scores = softmax(iif * score) (``iif_loss.py:65-78``)."""
         return torch.softmax(cls_score.float() * self.weights, dim=-1)
@@ -149,5 +159,21 @@ class DetCrossEntropyLoss:
         return self.loss_weight * per.sum() / torch.clamp(
             torch.as_tensor(avg_factor, dtype=per.dtype), min=1.0)
 
+    def per_class_sums(self, cls_score: torch.Tensor, labels: torch.Tensor,
+                       weight: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """As ``DetIIFLoss.per_class_sums`` (``fasa_loss.py:10-101``)."""
+        return _per_class_sums(self(cls_score, labels, weight=weight,
+                                    reduction="none"),
+                               labels, cls_score.shape[-1])
+
     def get_activation(self, cls_score: torch.Tensor) -> torch.Tensor:
         return torch.softmax(cls_score.float(), dim=-1)
+
+
+def _per_class_sums(per: torch.Tensor, labels: torch.Tensor, n: int
+                    ) -> torch.Tensor:
+    """(one_hot(labels, n) * per[:, None]).sum(0), as JAX sums it."""
+    onehot = (labels[:, None] == torch.arange(n, device=labels.device)
+              ).to(per.dtype)
+    return (onehot * per[:, None]).sum(0)

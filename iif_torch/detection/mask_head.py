@@ -1,11 +1,13 @@
 """FCN mask head, its training targets and loss, and mask paste-back:
-port of ``iif_tpu/detection/mask_head.py`` (``FCNMaskHead`` with
+port of ``iif_tpu/detection/mask_head.py`` (``NormedConv2d``,
+``FCNMaskHead`` with the conv and the normed predictor and
 ``logits_for_labels``, ``mask_targets``, ``mask_head_loss``,
 ``paste_masks``) under mmdet's names ``convs.{i}.conv``, ``upsample``,
 ``conv_logits``.
 
 The head takes the 14x14 RoI features in the trunk's dtype and computes in
-f32 (flax promotes to its f32 parameters).
+f32 (flax promotes to its f32 parameters). The normed predictor's
+``conv_logits.weight`` is JAX's (C_in, num_classes) kernel as it stands.
 """
 from __future__ import annotations
 
@@ -19,17 +21,54 @@ from iif_torch.detection.necks import ConvModule
 from iif_torch.detection.rpn import bce_with_logits
 
 
-class FCNMaskHead(nn.Module):
-    def __init__(self, num_classes: int, in_channels: int = 256,
-                 num_convs: int = 4, conv_out_channels: int = 256):
+EPS = 1e-12
+
+
+class NormedConv2d(nn.Module):
+    """1x1 cosine conv on channels-last features: the features over their
+    L2 norm times the kernel's columns over theirs, scaled by
+    ``temperature`` (``normed_predictor.py:78-124``)."""
+
+    def __init__(self, in_channels: int, num_classes: int,
+                 temperature: float = 20.0):
         super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_channels, num_classes))
+        self.temperature = temperature
+
+    def normed_weight(self) -> torch.Tensor:
+        return self.weight / (torch.linalg.vector_norm(
+            self.weight, dim=0, keepdim=True) + EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., C_in) -> (..., num_classes)."""
+        xn = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + EPS)
+        return self.temperature * (xn @ self.normed_weight().to(x.dtype))
+
+
+class FCNMaskHead(nn.Module):
+    """``predictor`` is ``"conv"`` (a 1x1 conv with a bias) or
+    ``"normed"`` (``NormedConv2d`` at ``temperature``)."""
+
+    def __init__(self, num_classes: int, in_channels: int = 256,
+                 num_convs: int = 4, conv_out_channels: int = 256,
+                 predictor: str = "conv", temperature: float = 20.0):
+        super().__init__()
+        if predictor not in ("conv", "normed"):
+            raise NotImplementedError(
+                f"mask predictor {predictor!r} is not ported")
+        self.predictor = predictor
+        self.temperature = temperature
         self.convs = nn.ModuleList([
             ConvModule(in_channels if i == 0 else conv_out_channels,
                        conv_out_channels, 3, padding=1)
             for i in range(num_convs)])
         self.upsample = nn.ConvTranspose2d(conv_out_channels,
                                            conv_out_channels, 2, stride=2)
-        self.conv_logits = nn.Conv2d(conv_out_channels, num_classes, 1)
+        if predictor == "normed":
+            self.conv_logits = NormedConv2d(conv_out_channels, num_classes,
+                                            temperature)
+        else:
+            self.conv_logits = nn.Conv2d(conv_out_channels, num_classes, 1)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """(R, 14, 14, C_in) -> pre-logit features (R, C, 28, 28) NCHW."""
@@ -40,13 +79,23 @@ class FCNMaskHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(R, 14, 14, C_in) -> mask logits (R, 28, 28, num_classes)."""
-        return self.conv_logits(self.features(x)).permute(0, 2, 3, 1)
+        feats = self.features(x)
+        if self.predictor == "normed":
+            return self.conv_logits(feats.permute(0, 2, 3, 1))
+        return self.conv_logits(feats).permute(0, 2, 3, 1)
 
     def logits_for_labels(self, x: torch.Tensor, labels: torch.Tensor
                           ) -> torch.Tensor:
-        """Inference fast path: only each RoI's predicted-class channel,
-        (R, 28, 28)."""
+        """Only each RoI's own class channel, (R, 28, 28). The normed
+        branch normalises the kernel's columns and the features, and
+        scales the gathered columns by the temperature, in JAX's order."""
         feats = self.features(x)                               # (R, C, S, S)
+        if self.predictor == "normed":
+            sel = self.conv_logits.normed_weight().t()[labels]  # (R, C)
+            feats = feats / (torch.linalg.vector_norm(
+                feats, dim=1, keepdim=True) + EPS)
+            return torch.einsum("rchw,rc->rhw", feats,
+                                sel * self.temperature)
         sel = self.conv_logits.weight[:, :, 0, 0][labels]      # (R, C)
         out = torch.einsum("rchw,rc->rhw", feats, sel)
         return out + self.conv_logits.bias[labels][:, None, None]

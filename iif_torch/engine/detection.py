@@ -1,18 +1,26 @@
 """Detection trainer: port of ``iif_tpu/engine/detection.py``
-(``DetectionTrainer`` with ``init_state``, one train step and
-``train_one_epoch``, and ``frozen_backbone_mask``) for the MaskRCNN and
-the Faster R-CNN C4 losses, with ``grad_accum=1`` and no EMA, FASA,
-Seesaw or Dynamic R-CNN state. The step dispatches on the model as the
-JAX trainer does (``engine/detection.py:307-312`` for C4):
-``maskrcnn_loss`` for ``MaskRCNN``, ``c4_loss`` for ``C4FasterRCNN``;
-other families raise.
+(``DetectionTrainer`` with ``init_state``, one train step,
+``train_one_epoch``, the FASA val pass ``fasa_val_epoch`` with
+``_fasa_accumulate_batch``, and ``frozen_backbone_mask``) for the
+MaskRCNN, Cascade Mask R-CNN and Faster R-CNN C4 losses, with
+``grad_accum=1`` and no EMA, Seesaw or Dynamic R-CNN state. The step
+dispatches on the model as the JAX trainer does (``engine/
+detection.py:307-327``): ``maskrcnn_loss`` for ``MaskRCNN``,
+``cascade_loss`` for ``CascadeMaskRCNN`` (its stages share the one loss),
+``c4_loss`` for ``C4FasterRCNN``; other families raise.
+
+FASA's state (``detection/fasa.py``; one ``FasaState`` a stage for the
+cascade) rides in the train state; the aug loss is on from epoch 1
+(``fasa_aug_on``, ``engine/detection.py:469-470``).
 
 The JAX step folds the step number into its base key; here each step
 draws its sampling noise from a ``torch.Generator`` seeded from
-``(seed, step)``. The step returns the JAX package's metrics: the losses
-and their sum under ``"loss"``, as device tensors (nothing syncs with the
-host). The backward and the optimizer are ``record_function`` spans
-(``backward``, ``optimizer``) beside the loss's stage spans.
+``(seed, step)``, and the FASA val pass from ``(seed, step + 999_983)``.
+The step returns the JAX package's metrics: the losses and their sum
+under ``"loss"``, and with gradient clipping the global norm under
+``"grad_norm"``, as device tensors (nothing syncs with the host). The
+backward and the optimizer are ``record_function`` spans (``backward``,
+``optimizer``) beside the loss's stage spans.
 
 ``train_one_epoch`` reads the metrics back asynchronously, as the JAX
 package's does: a step's metrics wait in a window of ``SYNC_WINDOW``
@@ -24,13 +32,24 @@ too).
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
+from iif_torch.detection.bbox_head import bbox_targets
 from iif_torch.detection.c4 import C4FasterRCNN, c4_loss
+from iif_torch.detection.cascade import (
+    STAGE_IOUS,
+    CascadeMaskRCNN,
+    _refine,
+    _rois5,
+    _select_pred,
+    cascade_loss,
+)
 from iif_torch.detection.detector import (
     DetTrainCfg,
     MaskRCNN,
@@ -38,7 +57,14 @@ from iif_torch.detection.detector import (
     maskrcnn_loss,
     train_cfg_from_dict,
 )
+from iif_torch.detection.fasa import (
+    fasa_accumulate_val,
+    fasa_dynamic_sampling,
+    init_fasa_state,
+)
 from iif_torch.detection.init import fresh_init_
+from iif_torch.detection.roi_extractor import SingleRoIExtractor
+from iif_torch.detection.rpn import rpn_proposals
 from iif_torch.device import resolve_device
 from iif_torch.engine.schedules import build_lr_schedule, build_optimizer
 from iif_torch.utils.metrics import MetricLogger
@@ -47,6 +73,8 @@ from iif_torch.utils.metrics import MetricLogger
 # the semantic maps and proposals the port does not train with)
 FEED_KEYS = ("image", "gt_boxes", "gt_labels", "gt_valid", "gt_masks",
              "gt_masks_packed")
+VAL_KEYS = FEED_KEYS[:4]  # the FASA val pass moves no masks
+VAL_STEP_OFFSET = 999_983  # the val pass's draws: (seed, step + this)
 SYNC_WINDOW = 4           # steps of metrics in flight before a read-back
 
 
@@ -67,19 +95,44 @@ class DetTrainState:
     step: int
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
+    fasa: Any = None     # a FasaState, a tuple of one a stage, or None
+
+
+def init_fasa_states(model, instance_counts: np.ndarray,
+                     fasa_cfg: Dict[str, Any], device=None):
+    """FASA's initial state for ``model`` from the train set's instance
+    counts (``cli/train_det.py:243-260``): one ``FasaState``, or for a
+    cascade one independent copy a stage."""
+    fcfg = fasa_cfg or {}
+
+    def one():
+        return init_fasa_state(
+            np.maximum(instance_counts, 1), feat_dim=1024,
+            instance_prob_power=fcfg.get("instance_prob_power", 1.0),
+            instance_prob_scale=fcfg.get("instance_prob_scale", 1.0),
+            device=device)
+
+    if isinstance(model, CascadeMaskRCNN):
+        return tuple(one() for _ in range(model.num_stages))
+    return one()
 
 
 class DetectionTrainer:
-    """Trains ``model`` (a ``MaskRCNN`` or a ``C4FasterRCNN``, on
-    ``device``, default the card) with ``loss_cls`` under
-    ``lr_schedule``; ``optimizer_cfg`` is the config's ``optimizer`` dict
-    (type, momentum, weight_decay)."""
+    """Trains ``model`` (a ``MaskRCNN``, a ``CascadeMaskRCNN`` or a
+    ``C4FasterRCNN``, on ``device``, default the card) with ``loss_cls``
+    under ``lr_schedule``; ``optimizer_cfg`` is the config's ``optimizer``
+    dict (type, momentum, weight_decay), ``grad_clip`` the global-norm
+    bound of ``optimizer_config.grad_clip``, ``fasa_cfg`` the config's
+    (decay_ratio, loss_aug_weight, dynamic_up, dynamic_down)."""
 
-    def __init__(self, model: Union[MaskRCNN, C4FasterRCNN], loss_cls,
+    def __init__(self, model: Union[MaskRCNN, CascadeMaskRCNN,
+                                    C4FasterRCNN], loss_cls,
                  lr_schedule: Callable[[int], float],
                  train_cfg: DetTrainCfg = DetTrainCfg(),
                  optimizer_cfg: Optional[Dict[str, Any]] = None,
-                 seed: int = 0, device: Union[str, torch.device] = "cuda"):
+                 seed: int = 0, device: Union[str, torch.device] = "cuda",
+                 grad_clip: Optional[float] = None,
+                 fasa_cfg: Optional[Dict[str, Any]] = None):
         self.device = resolve_device(device)
         self.loss_fn = _loss_fn(model)
         self.model = model.to(self.device).train()
@@ -88,31 +141,42 @@ class DetectionTrainer:
         self.train_cfg = train_cfg
         self.optimizer_cfg = dict(optimizer_cfg or {})
         self.seed = seed
+        self.grad_clip = grad_clip
+        self.fasa_cfg = fasa_cfg
 
-    def init_state(self) -> DetTrainState:
-        """Optimizer state over the trainable parameters, at step 0."""
+    def init_state(self, fasa_state=None) -> DetTrainState:
+        """Optimizer state over the trainable parameters, at step 0, and
+        FASA's state (``init_fasa_states``) when it trains with FASA."""
         ocfg = self.optimizer_cfg
         opt, sched = build_optimizer(
             ocfg.get("type", "sgd"), self.model.parameters(),
             self.lr_schedule, ocfg.get("momentum", 0.9),
-            ocfg.get("weight_decay", 1e-4))
-        return DetTrainState(0, opt, sched)
+            ocfg.get("weight_decay", 1e-4), grad_clip=self.grad_clip)
+        return DetTrainState(0, opt, sched, fasa_state)
+
+    def _generator(self, step: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            ((self.seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
 
     def train_step(self, state: DetTrainState,
                    batch: Dict[str, Any],
-                   noise: Optional[Dict[str, Any]] = None
+                   noise: Optional[Dict[str, Any]] = None, epoch: int = 0
                    ) -> Tuple[DetTrainState, Dict[str, torch.Tensor]]:
-        """One SGD step on ``batch`` (see ``maskrcnn_loss`` or ``c4_loss``
-        for its keys; ``noise`` as there). Updates the model and ``state``
-        in place and returns them with the metrics."""
+        """One SGD step on ``batch`` (see ``maskrcnn_loss``,
+        ``cascade_loss`` or ``c4_loss`` for its keys; ``noise`` as
+        there) in ``epoch`` (FASA's aug loss from epoch 1). Updates the
+        model and ``state`` in place and returns them with the
+        metrics."""
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
         self.model.train()
-        generator = torch.Generator(device=self.device).manual_seed(
-            ((self.seed & 0xFFFFFFFF) << 32) | (state.step & 0xFFFFFFFF))
-        total, losses, _ = self.loss_fn(
+        kwargs = {}
+        if state.fasa is not None:
+            kwargs = {"fasa_state": state.fasa, "fasa_cfg": self.fasa_cfg,
+                      "epoch": 1 if epoch >= 1 else 0}
+        total, losses, aux = self.loss_fn(
             self.model, batch, self.loss_cls, self.train_cfg,
-            generator=generator, noise=noise)
+            generator=self._generator(state.step), noise=noise, **kwargs)
         with record_function("backward"):
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
@@ -120,8 +184,11 @@ class DetectionTrainer:
             state.optimizer.step()
             state.scheduler.step()
         state.step += 1
+        state.fasa = aux.get("fasa_state", state.fasa)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
+        if state.optimizer.grad_clip is not None:
+            metrics["grad_norm"] = state.optimizer.grad_clip.last_norm
         return state, metrics
 
     def train_one_epoch(self, state: DetTrainState, loader, epoch: int,
@@ -162,9 +229,12 @@ class DetectionTrainer:
             for i, batch in enumerate(logger.log_every(
                     batches, print_freq, f"Epoch: [{epoch}]", total=total,
                     sink=sink)):
+                # the epoch matters only to FASA (its aug loss)
                 state, metrics = self.train_step(
                     state, {k: v for k, v in batch.items()
-                            if k in FEED_KEYS})
+                            if k in FEED_KEYS},
+                    **({} if getattr(state, "fasa", None) is None
+                       else {"epoch": epoch}))
                 pending.append(metrics)
                 if print_freq and (i % print_freq == 0 or i == total - 1):
                     while pending:
@@ -179,11 +249,114 @@ class DetectionTrainer:
                 close()
         return state, logger
 
+    def fasa_val_epoch(self, state: DetTrainState, loader,
+                       print_fn=print) -> DetTrainState:
+        """The dynamic runner's val pass (``engine/detection.py:485-509``,
+        the reference's ``epoch_based_dynamic_runner.py:48-86``): each
+        batch of ``loader`` (the val set through the train pipeline)
+        adds its per-class losses to FASA's counters, then each stage's
+        ``fasa_dynamic_sampling`` runs; its seconds and each stage's
+        ``prob_list`` are printed. Returns ``state`` with the new FASA
+        state."""
+        fasa = state.fasa
+        batches = iter(loader)
+        try:
+            for batch in batches:
+                fasa = self._fasa_accumulate_batch(
+                    state, {k: torch.as_tensor(v, device=self.device)
+                            for k, v in batch.items() if k in VAL_KEYS},
+                    fasa)
+        finally:
+            close = getattr(batches, "close", None)
+            if close is not None:
+                close()
+        fcfg = self.fasa_cfg or {}
+        up, down = fcfg.get("dynamic_up", 1.1), fcfg.get("dynamic_down", 0.9)
+        stages = fasa if isinstance(self.model, CascadeMaskRCNN) else (fasa,)
+        new = []
+        for i, st in enumerate(stages):
+            t0 = time.perf_counter()
+            new.append(fasa_dynamic_sampling(st, up, down))
+            p = new[-1].prob_list.cpu().numpy()
+            print_fn(f"FASA dynamic sampling stage {i}: {len(p)} classes "
+                     f"in {time.perf_counter() - t0:.3f} s, prob_list "
+                     f"min {p.min():.6g} mean {p.mean():.6g} max "
+                     f"{p.max():.6g}")
+        state.fasa = (tuple(new) if isinstance(self.model, CascadeMaskRCNN)
+                      else new[0])
+        return state
+
+    @torch.no_grad()
+    def _fasa_accumulate_batch(self, state: DetTrainState,
+                               batch: Dict[str, torch.Tensor], fasa,
+                               noise: Optional[List[Tuple[torch.Tensor,
+                                                          torch.Tensor]]]
+                               = None):
+        """One val batch (``engine/detection.py:511-589``): the eval-mode
+        trunk's proposals (``train_cfg``'s RPN settings), each stage's
+        RoIs sampled at the stage's IoU and their class scores, folded
+        into the FASA counters; a cascade stage refines the next stage's
+        RoIs by the target labels. ``noise`` is one sampler draw (pos,
+        neg) a stage as ``bbox_targets`` takes it, (B, G + P) in stage 0
+        and (B, R) after; without it the samplers draw from a generator
+        seeded ``(seed, step + 999_983)``."""
+        model, tc = self.model, self.train_cfg
+        model.eval()
+        try:
+            images = batch["image"]
+            b, img_h, img_w, _ = images.shape
+            feats = model.extract_feat(images)
+            cls_scores, bbox_preds = model.rpn_head(feats)
+            proposals, _, prop_valid = rpn_proposals(
+                cls_scores, bbox_preds,
+                model.anchors((img_h, img_w), images.device),
+                (img_h, img_w), nms_pre=tc.rpn_nms_pre,
+                max_per_img=tc.rpn_max_per_img, nms_iou=tc.rpn_nms_iou)
+            generator = self._generator(state.step + VAL_STEP_OFFSET)
+            nhwc = [f.permute(0, 2, 3, 1) for f in feats[:4]]
+            cascade = isinstance(model, CascadeMaskRCNN)
+            heads = model.roi_head.bbox_head if cascade else [
+                model.roi_head.bbox_head]
+            stages = fasa if cascade else (fasa,)
+            new = []
+            for i, head in enumerate(heads):
+                iou = STAGE_IOUS[i] if cascade else 0.5
+                with record_function(f"fasa_val_stage{i}"):
+                    tgts = bbox_targets(
+                        proposals, prop_valid, batch["gt_boxes"],
+                        batch["gt_labels"], batch["gt_valid"],
+                        model.num_classes, num_samples=tc.rcnn_num_samples,
+                        pos_fraction=tc.rcnn_pos_fraction,
+                        noise=None if noise is None else noise[i],
+                        generator=generator, pos_iou_thr=iou,
+                        neg_iou_thr=iou, min_pos_iou=iou,
+                        add_gt_as_proposals=i == 0)
+                    cls_score, bbox_pred, _ = head(SingleRoIExtractor(
+                        (7, 7))(nhwc, _rois5(tgts.rois)))
+                    labels = tgts.labels.reshape(-1)
+                    new.append(fasa_accumulate_val(
+                        stages[i], self.loss_cls, cls_score, labels,
+                        tgts.label_weights.reshape(-1)))
+                if cascade and i < model.num_stages - 1:
+                    pred4 = _select_pred(bbox_pred, labels,
+                                         model.num_classes,
+                                         model.reg_class_agnostic)
+                    proposals = _refine(
+                        tgts.rois.reshape(-1, 4), pred4, (img_h, img_w),
+                        model.stage_stds[i]).reshape(
+                            b, tc.rcnn_num_samples, 4)
+                    prop_valid = tgts.label_weights > 0
+        finally:
+            model.train()
+        return tuple(new) if cascade else new[0]
+
 
 def _loss_fn(model) -> Callable:
     """The loss of the model's family, as the JAX trainer dispatches."""
     if isinstance(model, C4FasterRCNN):
         return c4_loss
+    if isinstance(model, CascadeMaskRCNN):
+        return cascade_loss
     if isinstance(model, MaskRCNN):
         return maskrcnn_loss
     raise NotImplementedError(
@@ -193,22 +366,20 @@ def _loss_fn(model) -> Callable:
 def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
                         device: Union[str, torch.device] = "cuda"
                         ) -> DetectionTrainer:
-    """A trainer for a MaskRCNN or a Faster R-CNN C4 config as
-    ``iif_tpu/cli/train_det.py`` builds one (model, ``train_cfg``, for
-    MaskRCNN with the pipeline's ``mask_stride``, the step-decay schedule
-    with warm-up, SGD), from fresh weights drawn as the JAX package's
-    ``model.init`` draws them (``fresh_init_``, seeded; ``cls_init`` from
-    the config); ``cli/train_det.py`` then loads ``pretrained_backbone``,
-    ``--resume-from`` or ``--load-from`` over them. Raises
+    """A trainer for a MaskRCNN, Cascade Mask R-CNN or Faster R-CNN C4
+    config as ``iif_tpu/cli/train_det.py`` builds one (model,
+    ``train_cfg``, with masks the pipeline's ``mask_stride``, the
+    step-decay schedule with warm-up, SGD with
+    ``optimizer_config.grad_clip``'s ``max_norm``, ``fasa_cfg``), from
+    fresh weights drawn as the JAX package's ``model.init`` draws them
+    (``fresh_init_``, seeded; ``cls_init`` from the config). Raises
     ``NotImplementedError`` for what the port does not train with:
-    gradient accumulation, gradient clipping, parameter-wise optimizer
-    settings and other LR policies."""
+    gradient accumulation, parameter-wise optimizer settings and other
+    LR policies."""
     device = resolve_device(device)
     ocfg, lcfg = dict(cfg.optimizer), dict(cfg.get("lr_config", {}))
     unported = {
         "data.grad_accum": cfg.data.get("grad_accum", 1) != 1,
-        "optimizer_config.grad_clip": bool(
-            cfg.get("optimizer_config", {}).get("grad_clip")),
         "optimizer.paramwise_cfg": bool(ocfg.get("paramwise_cfg")),
         "lr_config.policy": lcfg.get("policy", "step") != "step",
     }
@@ -218,7 +389,7 @@ def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
     model = build_detector(dict(cfg.model))
     fresh_init_(model, torch.Generator().manual_seed(seed))
     tc = dict(cfg.get("train_cfg", {}))
-    if isinstance(model, MaskRCNN):
+    if isinstance(model, (MaskRCNN, CascadeMaskRCNN)):
         tc.setdefault("mask_gt_stride",
                       cfg.get("pipeline", {}).get("mask_stride", 1))
     schedule = build_lr_schedule(
@@ -226,6 +397,9 @@ def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
         lr_gamma=lcfg.get("gamma", 0.1),
         warmup_iters=lcfg.get("warmup_iters"),
         warmup_factor=lcfg.get("warmup_factor", 1.0 / 1000))
+    grad_clip = cfg.get("optimizer_config", {}).get("grad_clip") or {}
     return DetectionTrainer(model, loss_cls, schedule,
                             train_cfg_from_dict(tc), ocfg, seed=seed,
-                            device=device)
+                            device=device,
+                            grad_clip=grad_clip.get("max_norm"),
+                            fasa_cfg=cfg.get("fasa_cfg"))

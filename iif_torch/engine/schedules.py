@@ -26,6 +26,11 @@ under a ``LambdaLR`` that returns the schedule's rate:
 The two written here compute in optax's order in f32, each divisor a
 tensor. The schedule computes in float32, as the jitted JAX schedule
 does.
+
+``grad_clip`` (the configs' ``optimizer_config.grad_clip.max_norm``) puts
+optax's ``clip_by_global_norm`` first in the chain, before the coupled
+decay and the momentum: ``GlobalNormClip``, a step pre-hook over the
+trainable gradients.
 """
 from __future__ import annotations
 
@@ -152,18 +157,51 @@ class AdamWOptax(torch.optim.Optimizer):
                 p.add_(u * -group["lr"])
 
 
+class GlobalNormClip:
+    """optax ``clip_by_global_norm(max_norm)`` as an optimizer step
+    pre-hook: the global L2 norm over the gradients of the parameters
+    that have one, and every gradient scaled by ``max_norm / norm``
+    where ``norm >= max_norm``; no epsilon (``torch.nn.utils.
+    clip_grad_norm_`` divides by ``norm + 1e-6``). The per-tensor norms
+    and the scaling are one multi-tensor kernel each (a few hundred
+    tensors a detector), without a host sync; the result is within f32
+    rounding of optax's ``(g / norm) * max_norm``. ``last_norm`` is the
+    last step's norm, a device tensor (reading it syncs)."""
+
+    def __init__(self, max_norm: float):
+        self.max_norm = float(max_norm)
+        self.last_norm: Optional[torch.Tensor] = None
+
+    @torch.no_grad()
+    def __call__(self, optimizer: torch.optim.Optimizer, args, kwargs
+                 ) -> None:
+        grads = [p.grad for group in optimizer.param_groups
+                 for p in group["params"] if p.grad is not None]
+        if not grads:
+            return
+        norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
+        scale = torch.where(norm < self.max_norm, torch.ones_like(norm),
+                            self.max_norm / norm)
+        torch._foreach_mul_(grads, scale)
+        self.last_norm = norm
+
+
 def build_optimizer(
     opt_name: str,
     params: Iterable[torch.nn.Parameter],
     lr_schedule: Callable[[int], float],
     momentum: float = 0.9,
     weight_decay: float = 1e-4,
+    grad_clip: Optional[float] = None,
 ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
     """The optimizer of ``opt_name`` (``sgd``, ``nesterov``, ``rmsprop``,
     ``adamw``) over the parameters that require a gradient (the
     trainable mask: a frozen stage has ``requires_grad`` off), and the
     scheduler that sets its rate from ``lr_schedule`` at every step.
-    Other names raise ``ValueError``, as JAX's does."""
+    With ``grad_clip`` the optimizer's ``grad_clip`` attribute is its
+    ``GlobalNormClip`` (else None). Other names raise ``ValueError``, as
+    JAX's does."""
     name = opt_name.lower()
     params = [p for p in params if p.requires_grad]
     if name in ("sgd", "nesterov"):
@@ -178,6 +216,9 @@ def build_optimizer(
     else:
         raise ValueError(f"Invalid optimizer {opt_name}. Only SGD and "
                          "RMSprop are supported.")
+    opt.grad_clip = GlobalNormClip(grad_clip) if grad_clip else None
+    if opt.grad_clip is not None:
+        opt.register_step_pre_hook(opt.grad_clip)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_schedule)
 
 

@@ -4,8 +4,9 @@
 ``<work_dir>/checkpoints/epoch_{n}.pth`` holding ``{"meta": {epoch, iter,
 config}, "state_dict": <the model's mmdet names>, "optimizer": ...,
 "scheduler": ...}``, and ``latest.pth`` beside it, a link to the newest
-(as mmcv's). The format differs from the JAX package's (orbax needs JAX
-to be read)."""
+(as mmcv's). A state with FASA adds ``"fasa"``, one ``{field: tensor}``
+a stage, which ``restore`` puts back and serving ignores. The format
+differs from the JAX package's (orbax needs JAX to be read)."""
 from __future__ import annotations
 
 import os
@@ -13,6 +14,8 @@ import re
 from typing import Any, Dict, Optional
 
 import torch
+
+from iif_torch.detection.fasa import fasa_from_state_dict, fasa_state_dict
 
 _EPOCH = re.compile(r"epoch_(\d+)\.pth$")
 
@@ -27,11 +30,14 @@ def save_checkpoint(work_dir: str, epoch: int, model: torch.nn.Module,
     ckpt_dir = os.path.join(work_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"epoch_{epoch}.pth")
-    torch.save({"meta": {"epoch": epoch, "iter": state.step,
-                         "config": config, **(meta or {})},
-                "state_dict": model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "scheduler": state.scheduler.state_dict()}, path)
+    ckpt = {"meta": {"epoch": epoch, "iter": state.step,
+                     "config": config, **(meta or {})},
+            "state_dict": model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "scheduler": state.scheduler.state_dict()}
+    if getattr(state, "fasa", None) is not None:
+        ckpt["fasa"] = fasa_state_dict(state.fasa)
+    torch.save(ckpt, path)
     latest = os.path.join(ckpt_dir, "latest.pth")
     if os.path.lexists(latest):
         os.remove(latest)
@@ -61,13 +67,17 @@ def read_meta(path: str) -> Dict[str, Any]:
 
 def restore(path: str, model: torch.nn.Module, state) -> int:
     """Resume: the model's weights, the optimizer's momentum buffers and
-    learning rate, the scheduler's position and ``state.step`` from
-    ``path``, in place. Returns the epochs it had finished."""
+    learning rate, the scheduler's position, ``state.step`` and FASA's
+    state (on the model's device) from ``path``, in place. Returns the
+    epochs it had finished."""
     ckpt = _read(path)
     model.load_state_dict(ckpt["state_dict"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.scheduler.load_state_dict(ckpt["scheduler"])
     state.step = int(ckpt["meta"]["iter"])
+    if "fasa" in ckpt:
+        state.fasa = fasa_from_state_dict(
+            ckpt["fasa"], next(model.parameters()).device)
     return int(ckpt["meta"]["epoch"])
 
 

@@ -1,6 +1,7 @@
 """The port's ground rules: ``iif_torch`` and ``chip_smoke.py`` import no
-JAX, flax or ``iif_tpu`` (nor pandas or torchvision, which the card's
-machine lacks; cv2 only lazily inside a function), and the entry points
+JAX, flax or ``iif_tpu`` (nor pandas, torchvision or scikit-learn, which
+the card's machine lacks, not even lazily; cv2 only lazily inside a
+function), and the entry points
 run on CUDA unless given ``device="cpu"``."""
 import ast
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "iif_tpu", "pandas", "torchvision"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "iif_tpu", "pandas", "torchvision",
+             "sklearn"}
 
 
 def _port_files():
@@ -71,7 +73,8 @@ def test_port_package_has_every_module():
                 "cli/train.py", "utils/init.py", "utils/prefetch.py",
                 "data/autoaugment.py", "data/branch_augment.py",
                 "quant.py", "engine/calibration.py",
-                "cli/train_quantization.py"):
+                "cli/train_quantization.py", "detection/cascade.py",
+                "detection/fasa.py"):
         assert mod in names, mod
     for src in ("roi_align_ml.cu", "roi_align.cu", "roi_align_common.cuh"):
         assert (REPO / "iif_torch" / "csrc" / src).is_file(), src

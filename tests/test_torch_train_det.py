@@ -206,9 +206,9 @@ def test_cli_trains_resumes_and_serves(data, tmp_path, monkeypatch):
      NotImplementedError, "evaluation"),
     (["--tp", "2"], {}, NotImplementedError, "--tp"),
     (["--selectp", "1"], {}, NotImplementedError, "--selectp"),
-    ([], {"runner.type": "EpochBasedDynamicRunner"}, NotImplementedError,
-     "EpochBasedDynamicRunner"),
-    ([], {"fasa_cfg": {}}, NotImplementedError, "fasa_cfg"),
+    ([], {"data.grad_accum": 2}, NotImplementedError, "grad_accum"),
+    ([], {"optimizer.paramwise_cfg": {"norm_decay_mult": 0.0}},
+     NotImplementedError, "paramwise_cfg"),
     ([], {"custom_hooks": [{"type": "EMAHook"}]}, NotImplementedError,
      "EMAHook"),
     ([], {"custom_hooks": [{"type": "YOLOXModeSwitchHook"}]},
