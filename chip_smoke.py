@@ -173,9 +173,38 @@
    (its seconds), ``prob_list`` moved, ``--resume-from`` restoring every
    FASA field, the checkpoint served back; then FASA MaskRCNN R50 steps
    (``fasa_r50_phase``).
-19. The card's name and power limit, the ``kernels`` JSON line (each row
+19. HTC serving (``htc_serving_phase``, beside 16.; its profile beside
+   the cascade's, spans from ``cascade.py`` and ``htc.py``): the paper's
+   ``configs/activations/iif/iif_htc_r101_4x4_1x.py`` as it stands (HTC
+   R101-FPN, bf16, 1203 classes, IIF) through ``init_detector`` with
+   ``fresh_init_`` weights, 20 b1 requests and 10 b2 batches, K1 three
+   7x7 and one 14x14 a forward, every served image's stage RoI features
+   against the plain RoIAlign, K1 on each stage's RoIs and the
+   detections, the masks of three chained trunks finite and in [0, 1].
+   Then the X101 sigmoid baseline ``configs/activations/x101_4x4_1x.py``
+   (ResNeXt-101 32x4d) likewise at b1 (``x101_serving_phase``), its
+   ``backbone_fpn`` span beside HTC R101's.
+20. HTC training (``htc_training_phase``): the same config through
+   ``trainer_from_config`` at b4 on 6.'s batch, ``grad_clip`` 35, 3 + 5
+   steps, K1 and K2 three a size a step, NMS host syncs, a profiled step
+   by stage (``stage{i}_mask_trunk`` / ``_mask_loss``), K1 and K2 on each
+   stage's own RoIs (the mask RoIs re-sampled from the refined boxes).
+21. HTC through the CLIs (``htc_cli_phase``): ``cli.train_det`` on 8
+   seeded PNGs (one epoch of 2 b4 steps, mmdet's HTC names in the
+   checkpoint, a resume restoring it bit for bit), ``cli.test_det`` on
+   that checkpoint (``results.json``, gt as detections AP 1), one HTTP
+   request through ``cli.serve``'s ``make_server`` (a PNG body, decoded
+   without cv2).
+22. The activations baselines' training: the X101 sigmoid baseline at b4
+   (3 + 5 steps, its ``backbone_fpn`` span beside HTC R101's, the sigmoid
+   CE of a step's own logits on the card against the CPU,
+   ``x101_training_phase``), and the sigmoid cascade R50
+   ``configs/activations/cascade_r50_4x4_1x.py`` (1 + 3 steps,
+   ``sigmoid_cascade_phase``).
+23. The card's name and power limit, the ``kernels`` JSON line (each row
    also with its launches on the classification, QAT, augmentation,
-   family and FASA paths), then the device line as the last line.
+   family, FASA, HTC and activations paths), then the device line as the
+   last line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or the
 ``iif_torch`` package is not beside this file; any failed check raises.
@@ -1262,13 +1291,14 @@ STAGES = ("backbone_fpn", "rpn", "bbox_roi_align", "bbox_head", "bbox_nms",
           "mask_roi_align", "mask_head")
 
 
-def profile_phase(torch, det, image, module, stages, kernel):
+def profile_phase(torch, det, image, modules, stages, kernel):
     """One b1 request of ``image``, three ways.
 
     Unprofiled: the median wall time of REQUESTS/2 requests, and of as
     many with the device drained at each stage's ends (the
-    ``record_function`` spans ``stages`` of the simple_test in ``module``
-    swapped for a synchronising timer), which gives each stage's wall
+    ``record_function`` spans ``stages`` of the simple_test in
+    ``modules``, a module or a tuple of them, swapped for a synchronising
+    timer), which gives each stage's wall
     time with its own host work and device work and nothing of its
     neighbours'. ``kernel`` names the RoIAlign kernel read by name.
 
@@ -1302,13 +1332,11 @@ def profile_phase(torch, det, image, module, stages, kernel):
         torch.cuda.synchronize()
         stage_walls[name].append((time.perf_counter() - t0) * 1e3)
 
-    record_function_orig = module.record_function
-    module.record_function = synced_span
-    try:
+    if not isinstance(modules, tuple):
+        modules = (modules,)
+    with patched(*((m, "record_function", synced_span) for m in modules)):
         for _ in range(n):
             inference_detector(det, image, masks=False)
-    finally:
-        module.record_function = record_function_orig
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1509,6 +1537,9 @@ def c4_serving_phase(torch, np):
             "compare": compare, "detector": det, "image": images[3]}
 
 
+K12_PARTS = (("K1", "roi_align_ml_fwd_kernel"),
+             ("K2", "roi_align_ml_bwd_kernel"),
+             ("K2 cast", "cast_f32_bf16_kernel"))
 TRAIN_STAGES = ("backbone_fpn", "rpn_loss", "rpn_proposals", "bbox_targets",
                 "bbox_roi_align", "bbox_head_loss", "mask_targets",
                 "mask_roi_align", "mask_head_loss", "backward", "optimizer")
@@ -1727,10 +1758,7 @@ def training_phase(torch, np):
               "peak_allocated_gib": peak_gb}
     state, result["profile"] = profile_train_step(
         torch, trainer, state, batch, (detector_mod, engine_mod),
-        TRAIN_STAGES, (("K1", "roi_align_ml_fwd_kernel"),
-                       ("K2", "roi_align_ml_bwd_kernel"),
-                       ("K2 cast", "cast_f32_bf16_kernel")),
-        statistics.median(step_ms))
+        TRAIN_STAGES, K12_PARTS, statistics.median(step_ms))
     return result
 
 
@@ -3269,24 +3297,15 @@ def cascade_serving_phase(torch, np):
     classes, normed heads, class-specific regressors, the 0.33 stage stds,
     ``score_thr=1e-4``, ``nms_iou=0.3``, 300 detections) through
     ``init_detector``, its weights from ``fresh_init_`` (seeded):
-    CASCADE_REQUESTS b1 requests and half as many b2 batches on the
-    800x1344 canvas, ms/image, K1's launches from 0 by path (three 7x7
-    and one 14x14 a forward, all on ``vec8``, no K2); each served image's
-    stage RoI features and class scores against the plain RoIAlign; K1
-    against its plain version on each stage's captured RoIs (f32 and
-    bf16, ``k1_row``)."""
+    ``staged_serving`` with CASCADE_REQUESTS b1 requests on the 800x1344
+    canvas."""
     from iif_torch.detection.cascade import (
         CascadeMaskRCNN,
         cascade_simple_test,
     )
-    from iif_torch.detection.inference import (
-        inference_detector,
-        inference_detector_batch,
-        init_detector,
-    )
+    from iif_torch.detection.inference import init_detector
     from iif_torch.detection.init import fresh_init_
     from iif_torch.detection.losses import DetIIFLoss
-    from iif_torch.ops.roi_align_ml import roi_align_ml
 
     cfg, _ = lvis_cfg(np, CASCADE_CONFIG, "test")
     t0 = time.time()
@@ -3309,48 +3328,40 @@ def cascade_serving_phase(torch, np):
     check(isinstance(det.loss_cls, DetIIFLoss), "IIF loss")
     check((tc.score_thr, tc.nms_iou, tc.max_per_img) == (1e-4, 0.3, 300),
           "test_cfg 1e-4, 0.3, 300")
-    sizes, images = serving_images(np)
-    inference_detector(det, images[0], masks=False)
-    inference_detector_batch(det, images[:2], pad_to=2, masks=False)
-    torch.cuda.synchronize()
+    return staged_serving(torch, np, det, "cascade", cascade_simple_test,
+                          CASCADE_REQUESTS)
 
-    reset_roi_launches()
-    b1_ms, results = [], []
-    for i in range(CASCADE_REQUESTS):
-        t0 = time.perf_counter()
-        results.append(inference_detector(det, images[i % len(images)],
-                                          masks=False))
-        b1_ms.append((time.perf_counter() - t0) * 1e3)
-    by_size = {"b1": roi_launches_by_size()}
-    paths = {"b1": dict(roi_align_ml.launches_by_path)}
-    reset_roi_launches()
-    b2_ms = []
-    for i in range(0, CASCADE_REQUESTS, 2):
-        pair = [images[i % len(images)], images[(i + 1) % len(images)]]
-        t0 = time.perf_counter()
-        results += inference_detector_batch(det, pair, pad_to=2,
-                                            masks=False)
-        b2_ms.append((time.perf_counter() - t0) * 1e3 / 2)
-    by_size["b2"] = roi_launches_by_size()
-    paths["b2"] = dict(roi_align_ml.launches_by_path)
+
+def staged_serving(torch, np, det, label, simple_test, requests):
+    """A three-stage detector served as the cascade and HTC phases serve
+    it: ``requests`` b1 requests and half as many b2 batches
+    (``served_launches``, NMS host syncs counted), K1 three 7x7 and one
+    14x14 a forward on each path (all on ``vec8``, no K2-K4), 300 finite
+    detections; each served
+    image's stage RoI features and class scores against the plain
+    RoIAlign; K1 against its plain version on each stage's RoIs and on
+    the detections of the last image (f32 and bf16, ``k1_row``); the
+    masks of a b2 forward finite and in [0, 1]."""
+    from iif_torch.detection.inference import inference_detector
+
+    m = det.model
+    _, images = serving_images(np)
+    ms, by_size, paths, results, syncs = served_launches(
+        torch, det, images, requests)
     launches = {p: c["K1"] for p, c in by_size.items()}
-    for path, n in (("b1", CASCADE_REQUESTS), ("b2", CASCADE_REQUESTS // 2)):
+    for path, n in (("b1", requests), ("b2", requests // 2)):
         check(launches[path] == {7: 3 * n, 14: n},
               f"K1 three 7x7 and one 14x14 a forward on {path}: "
               f"{launches[path]}")
         check(not any(by_size[path][k] for k in ("K2", "K3", "K4")),
-              f"no K2, K3 or K4 on the cascade {path} path")
-        check_vec8(f"K1 on the cascade {path} path", paths[path], 4 * n)
-    total_by_size = add_launches(by_size["b1"], by_size["b2"])
-    log("cascade serving launches", json.dumps(launches))
+              f"no K2, K3 or K4 on the {label} {path} path")
+        check_vec8(f"K1 on the {label} {path} path", paths[path], 4 * n)
+    log(f"{label} serving launches", json.dumps(launches))
     for res in results:
         check(res["boxes"].shape == (300, 4) and res["valid"].any(),
               "300 detections, some valid")
         for k, v in res.items():
             check(np.isfinite(v.astype(np.float64)).all(), f"finite {k}")
-
-    # each served image: its stages' RoI features and scores against the
-    # plain RoIAlign; K1 against its plain version on the last one's RoIs
     compare, seen = {}, []
     for j, image in enumerate(images):
         seen.clear()
@@ -3358,36 +3369,73 @@ def cascade_serving_phase(torch, np):
             inference_detector(det, image, masks=False)
         compare[f"image{j}"] = features_vs_plain(
             torch, seen, [7, 7, 7, 14], lambda i: m.roi_head.bbox_head[i])
-    log("cascade requests vs plain RoIAlign", json.dumps(compare))
+    log(f"{label} requests vs plain RoIAlign", json.dumps(compare))
     k1 = {}
     for i, (o, nhwc, rois, _) in enumerate(seen):
         feats32 = [f.float() for f in nhwc]
         for dt in (torch.float32, torch.bfloat16):
             row = k1_row(torch, feats32, rois, o, dt)
-            check(row["path"] == "vec8", "K1 takes vec8 on cascade RoIs")
+            check(row["path"] == "vec8", f"K1 takes vec8 on {label} RoIs")
             k1[(f"stage{i}" if o == 7 else "mask", row["dtype"])] = row
     sample = det.pipeline(images[1], det.device)
-    out = cascade_simple_test(m, sample["image"][None].expand(2, -1, -1, -1),
-                              det.loss_cls, tc)
-    check(tuple(out["masks"].shape) == (2, 300, 28, 28)
-          and bool(torch.isfinite(out["masks"]).all())
-          and float(out["masks"].min()) >= 0.0
-          and float(out["masks"].max()) <= 1.0, "cascade masks")
-    return {"b1_ms_per_image": spread(b1_ms),
-            "b2_ms_per_image": spread(b2_ms), "launches": launches,
-            "launches_by_size": total_by_size, "vs_plain": compare, "k1": k1,
-            "detector": det, "image": images[3]}
+    out = simple_test(m, sample["image"][None].expand(2, -1, -1, -1),
+                      det.loss_cls, det.test_cfg)
+    masks = out["masks"]
+    check(tuple(masks.shape) == (2, 300, 28, 28)
+          and bool(torch.isfinite(masks).all())
+          and float(masks.min()) >= 0.0 and float(masks.max()) <= 1.0,
+          f"{label} masks finite and in [0, 1]")
+    return {"b1_ms_per_image": spread(ms["b1"]),
+            "b2_ms_per_image": spread(ms["b2"]),
+            "nms_host_syncs_per_image": syncs, "launches": launches,
+            "launches_by_size": add_launches(by_size["b1"], by_size["b2"]),
+            "vs_plain": compare, "k1": k1, "detector": det,
+            "image": images[3]}
 
 
-def fasa_trainer(torch, np, config, options=None):
-    """``trainer_from_config`` of ``config`` on the seeded LVIS counts and
-    its initial state with FASA (one state a cascade stage)."""
+def served_launches(torch, det, images, requests):
+    """``requests`` b1 requests cycling over ``images`` and half as many
+    full b2 batches, each path's K1-K4 launches and NMS host syncs
+    counted from 0: ms/image, launches by path and output side, K1's by
+    kernel path, the results, the syncs an image by path."""
+    from iif_torch.detection.inference import (
+        inference_detector,
+        inference_detector_batch,
+    )
+    from iif_torch.ops.nms import nms
+    from iif_torch.ops.roi_align_ml import roi_align_ml
+
+    inference_detector(det, images[0], masks=False)
+    inference_detector_batch(det, images[:2], pad_to=2, masks=False)
+    torch.cuda.synchronize()
+    ms, by_size, paths, results, syncs = {}, {}, {}, [], {}
+    for path, step in (("b1", 1), ("b2", 2)):
+        reset_roi_launches()
+        nms.host_syncs = 0
+        ms[path] = []
+        for i in range(0, requests, step):
+            batch = [images[(i + j) % len(images)] for j in range(step)]
+            t0 = time.perf_counter()
+            if step == 1:
+                results.append(inference_detector(det, batch[0],
+                                                  masks=False))
+            else:
+                results += inference_detector_batch(det, batch, pad_to=2,
+                                                    masks=False)
+            ms[path].append((time.perf_counter() - t0) * 1e3 / step)
+        by_size[path] = roi_launches_by_size()
+        paths[path] = dict(roi_align_ml.launches_by_path)
+        syncs[path] = nms.host_syncs / requests
+    return ms, by_size, paths, results, syncs
+
+
+def lvis_trainer(torch, np, config, options=None):
+    """``trainer_from_config`` of ``config`` (``options`` merged) on the
+    seeded LVIS counts, its loss from them as the training CLI builds it.
+    Returns the trainer, the config and the counts."""
     from iif_torch.detection.datasets import build_dataset
     from iif_torch.detection.inference import build_loss_cls
-    from iif_torch.engine.detection import (
-        init_fasa_states,
-        trainer_from_config,
-    )
+    from iif_torch.engine.detection import trainer_from_config
 
     cfg, counts = lvis_cfg(np, config, "train")
     cfg.merge_from_options(options or {})
@@ -3398,18 +3446,27 @@ def fasa_trainer(torch, np, config, options=None):
     trainer = trainer_from_config(
         cfg, loss_cls, LVIS_IMAGES // cfg.data["samples_per_gpu"],
         device="cuda")
+    log(f"{Path(config).stem} trainer_from_config s {time.time() - t0:.3f}")
+    return trainer, cfg, counts
+
+
+def fasa_trainer(torch, np, config, options=None):
+    """``lvis_trainer`` of ``config`` and its initial state with FASA
+    (one state a cascade stage)."""
+    from iif_torch.engine.detection import init_fasa_states
+
+    trainer, cfg, counts = lvis_trainer(torch, np, config, options)
     state = trainer.init_state(init_fasa_states(
         trainer.model, counts, cfg.fasa_cfg, trainer.device))
-    log(f"{Path(config).stem} trainer_from_config s {time.time() - t0:.3f}")
     check(trainer.grad_clip == CASCADE_CLIP, "grad clip 35")
     check(trainer.fasa_cfg == dict(cfg.fasa_cfg), "fasa_cfg")
     return trainer, state
 
 
-def timed_fasa_steps(torch, trainer, state, batch, plan):
+def timed_steps(torch, trainer, state, batch, plan, label="FASA"):
     """The steps of ``plan``, (epoch, steps, timed from), each drained:
-    the times by epoch, every step's metrics (all finite, a positive
-    global norm)."""
+    the times by epoch, every step's metrics (all finite; with gradient
+    clipping a positive global norm)."""
     times, rows = {}, []
     for epoch, n, first in plan:
         for i in range(n):
@@ -3421,10 +3478,11 @@ def timed_fasa_steps(torch, trainer, state, batch, plan):
                     (time.perf_counter() - t0) * 1e3)
             rows.append({k: v.item() for k, v in m.items()})
     for i, row in enumerate(rows):
-        log(f"FASA step {i}", json.dumps(row))
+        log(f"{label} step {i}", json.dumps(row))
         for k, v in row.items():
             check(math.isfinite(v), f"finite {k} at step {i}")
-        check(row["grad_norm"] > 0, "global gradient norm logged")
+        if trainer.grad_clip is not None:
+            check(row["grad_norm"] > 0, "global gradient norm logged")
     return state, times, rows
 
 
@@ -3455,7 +3513,7 @@ def cascade_training_phase(torch, np):
     torch.cuda.synchronize()
     reset_roi_launches()
     torch.cuda.reset_peak_memory_stats()
-    state, times, rows = timed_fasa_steps(
+    state, times, rows = timed_steps(
         torch, trainer, state, batch,
         ((0, TRAIN_WARMUP + CASCADE_TIMED, TRAIN_WARMUP),
          (1, CASCADE_TIMED, 0)))
@@ -3484,30 +3542,13 @@ def cascade_training_phase(torch, np):
               "peak_allocated_gib": peak}
     state, result["profile"] = profile_train_step(
         torch, trainer, state, batch, (cascade_mod, engine_mod),
-        CASCADE_TRAIN_STAGES, (("K1", "roi_align_ml_fwd_kernel"),
-                               ("K2", "roi_align_ml_bwd_kernel"),
-                               ("K2 cast", "cast_f32_bf16_kernel")), median)
+        CASCADE_TRAIN_STAGES, K12_PARTS, median)
 
     # K1 and K2 on one step's own stage-3 maps and RoIs
-    seen = []
-    with patched(capture_extractor(seen)):
-        state, _ = trainer.train_step(state, batch, epoch=1)
-    check([o for o, *_ in seen] == [7, 14] * 3, "7x7 and 14x14 a stage")
-    rng = np.random.RandomState(7)
-    k1, k2, sides = {}, {}, []
-    for i, (o, nhwc, rois, _) in enumerate(seen):
-        sides.append(((rois[:, 3] - rois[:, 1]) * (rois[:, 4] - rois[:, 2])
-                      ).clamp(min=0).sqrt().mean().item())
-        if i < 4:
-            continue
-        feats32 = [f.float() for f in nhwc]
-        g32 = torch.tensor(rng.randn(rois.shape[0], o, o, 256),
-                           dtype=torch.float32, device="cuda")
-        for dt in (torch.float32, torch.bfloat16):
-            row = k1_row(torch, feats32, rois, o, dt)
-            k1[(o, row["dtype"])] = row
-            row = k2_row(torch, feats32, rois, g32, o, dt)
-            k2[(o, row["dtype"])] = row
+    state, k1, k2, sides = train_rois_rows(
+        torch, np, trainer, state, batch, [7, 14] * 3, (4, 5))
+    k1 = {(o, d): r for (_, o, d), r in k1.items()}
+    k2 = {(o, d): r for (_, o, d), r in k2.items()}
     result["mean_roi_side_px_by_call"] = sides
     result["k1"], result["k2"] = k1, k2
     return result
@@ -3650,7 +3691,7 @@ def fasa_r50_phase(torch, np):
     torch.cuda.synchronize()
     reset_roi_launches()
     torch.cuda.reset_peak_memory_stats()
-    state, times, rows = timed_fasa_steps(
+    state, times, rows = timed_steps(
         torch, trainer, state, batch, ((1, 1 + FASA_R50_STEPS, 1),))
     n = 1 + FASA_R50_STEPS
     by_size = roi_launches_by_size()
@@ -3662,6 +3703,448 @@ def fasa_r50_phase(torch, np):
             "grad_norms": [r["grad_norm"] for r in rows],
             "last_loss": rows[-1]["loss"], "launches": launches,
             "launches_by_size": by_size,
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+HTC_CONFIG = "configs/activations/iif/iif_htc_r101_4x4_1x.py"
+X101_CONFIG = "configs/activations/x101_4x4_1x.py"
+SIGMOID_CASCADE_CONFIG = "configs/activations/cascade_r50_4x4_1x.py"
+HTC_REQUESTS = 20                  # b1 requests; b2: half as many batches
+HTC_TIMED = 5                      # timed b4 steps after TRAIN_WARMUP
+HTC_CLI_IMAGES = 8                 # train and val PNGs of the CLI phase
+HTC_CLI_STEPS = 2                  # --max-steps: b4 steps an epoch
+X101_REQUESTS = 10                 # b1 requests of the X101 baseline
+SIGMOID_CASCADE_STEPS = 3          # timed steps after a warm-up
+SIGMOID_REL_TOL = 1e-5             # the card's sigmoid CE against the CPU's
+HTC_STAGES = ("backbone_fpn", "rpn") + tuple(
+    f"stage{i}_{part}" for i in range(3)
+    for part in ("bbox_roi_align", "bbox_head")) + (
+    "bbox_nms", "mask_roi_align") + tuple(
+    f"stage{i}_{part}" for i in range(3)
+    for part in ("mask_trunk", "mask_head"))
+HTC_TRAIN_STAGES = ("backbone_fpn", "rpn_loss", "rpn_proposals") + tuple(
+    f"stage{i}_{part}" for i in range(3)
+    for part in ("targets", "bbox_roi_align", "bbox_head_loss",
+                 "mask_targets", "mask_roi_align", "mask_trunk",
+                 "mask_loss")) + ("backward", "optimizer")
+
+
+def htc_serving_phase(torch, np):
+    """The headline HTC config as it stands (HTC R101-FPN, bf16 trunk,
+    1203 classes, IIF from the seeded LVIS counts, ``score_thr=1e-4``,
+    300 detections) through ``init_detector``, weights from
+    ``fresh_init_`` (seeded), stage 0 without ``conv_res``:
+    ``staged_serving`` with HTC_REQUESTS b1 requests (the masks through
+    three chained trunks)."""
+    from iif_torch.detection.htc import HTC, htc_simple_test
+    from iif_torch.detection.inference import init_detector
+    from iif_torch.detection.init import fresh_init_
+    from iif_torch.detection.losses import DetIIFLoss
+
+    cfg, _ = lvis_cfg(np, HTC_CONFIG, "test")
+    t0 = time.time()
+    det = init_detector(cfg, device="cuda")
+    fresh_init_(det.model, torch.Generator().manual_seed(0))
+    log(f"HTC init_detector + fresh_init_ s {time.time() - t0:.3f}")
+    m, tc = det.model, det.test_cfg
+    heads = m.roi_head.mask_head
+    check(type(m) is HTC and m.num_stages == 3, "a three-stage HTC")
+    check(m.num_classes == NUM_CLASSES and len(m.backbone.layer3) == 23
+          and m.backbone.compute_dtype == torch.bfloat16,
+          "R101, 1203 classes, bf16 trunk")
+    check(heads[0].conv_res is None and all(
+        h.conv_res is not None for h in heads[1:]),
+          "conv_res on stages 1 and 2 (mmdet's layout)")
+    check(isinstance(det.loss_cls, DetIIFLoss), "IIF loss")
+    check((tc.score_thr, tc.max_per_img) == (1e-4, 300),
+          "test_cfg 1e-4, 300")
+    return staged_serving(torch, np, det, "HTC", htc_simple_test,
+                          HTC_REQUESTS)
+
+
+def train_rois_rows(torch, np, trainer, state, batch, sizes, full,
+                    f32=()):
+    """One step of ``trainer`` with its extractor calls captured (their
+    output ``sizes`` in order checked): K1 and K2 against their plain
+    versions on the own maps and RoIs of the calls ``full`` names (f32
+    and bf16) and of those ``f32`` names (f32); each call's mean RoI side.
+    Returns the state, the rows by (call, output side, dtype) and the
+    sides."""
+    seen = []
+    with patched(capture_extractor(seen)):
+        state, _ = trainer.train_step(state, batch)
+    check([o for o, *_ in seen] == list(sizes),
+          f"extractor calls of sizes {sizes}")
+    rng = np.random.RandomState(7)
+    k1, k2, sides = {}, {}, []
+    for i, (o, nhwc, rois, _) in enumerate(seen):
+        sides.append(((rois[:, 3] - rois[:, 1]) * (rois[:, 4] - rois[:, 2])
+                      ).clamp(min=0).sqrt().mean().item())
+        if i not in full and i not in f32:
+            continue
+        feats32 = [f.float() for f in nhwc]
+        g32 = torch.tensor(rng.randn(rois.shape[0], o, o, 256),
+                           dtype=torch.float32, device="cuda")
+        for dt in (torch.float32, torch.bfloat16)[:2 if i in full else 1]:
+            row = k1_row(torch, feats32, rois, o, dt)
+            k1[(i, o, row["dtype"])] = row
+            row = k2_row(torch, feats32, rois, g32, o, dt)
+            k2[(i, o, row["dtype"])] = row
+    return state, k1, k2, sides
+
+
+def htc_training_phase(torch, np):
+    """The headline HTC config (``grad_clip`` 35 as it stands) through
+    ``trainer_from_config`` at b4 on the MaskRCNN cell's synthetic batch:
+    TRAIN_WARMUP + HTC_TIMED steps, ms/step, peak memory, NMS host syncs a
+    step, K1's and K2's launches from 0 (three a size a step, all on
+    ``vec8``), every loss finite, the global norms; the stages, busy share
+    and top kernels of a profiled step; then K1 and K2 against their
+    plain versions on one step's own maps and RoIs, each stage's (f32;
+    bf16 too on stage 2's)."""
+    import iif_torch.detection.cascade as cascade_mod
+    import iif_torch.detection.htc as htc_mod
+    import iif_torch.engine.detection as engine_mod
+    from iif_torch.ops.nms import nms
+    from iif_torch.ops.roi_align_ml import (
+        grad_launches_by_path,
+        roi_align_ml,
+    )
+
+    trainer, cfg, _ = lvis_trainer(torch, np, HTC_CONFIG)
+    check(type(trainer.model).__name__ == "HTC"
+          and trainer.loss_fn.__name__ == "htc_loss", "the HTC trainer")
+    check(trainer.grad_clip == CASCADE_CLIP, "grad clip 35")
+    check(trainer.train_cfg.rpn_nms_pre == 2000, "rpn_nms_pre 2000")
+    state = trainer.init_state()
+    batch = synthetic_train_batch(np, torch, "cuda")
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    nms.host_syncs = 0
+    torch.cuda.reset_peak_memory_stats()
+    n = TRAIN_WARMUP + HTC_TIMED
+    state, times, rows = timed_steps(
+        torch, trainer, state, batch, ((0, n, TRAIN_WARMUP),), label="HTC")
+    syncs = nms.host_syncs / n
+    by_size = roi_launches_by_size()
+    launches = {k: by_size[k] for k in ("K1", "K2")}
+    log("HTC training launches", json.dumps(launches))
+    for k, by_path in (("K1", roi_align_ml.launches_by_path),
+                       ("K2", grad_launches_by_path)):
+        check(launches[k] == {7: 3 * n, 14: 3 * n},
+              f"{k} three a size a step: {launches[k]}")
+        check_vec8(f"{k} on the HTC training path", by_path, 6 * n)
+    check(not by_size["K3"] and not by_size["K4"], "no K3 or K4")
+    check({f"s{s}.loss_mask" for s in range(3)} <= set(rows[-1]),
+          "every stage's mask loss")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    median = statistics.median(times[0])
+    norms = [r["grad_norm"] for r in rows]
+    result = {"steps": n, "step_ms": spread(times[0]),
+              "img_per_s": TRAIN_BATCH * 1e3 / median, "grad_norms": norms,
+              "steps_clipped": sum(v >= CASCADE_CLIP for v in norms),
+              "first_loss": rows[0]["loss"], "last_loss": rows[-1]["loss"],
+              "launches": launches, "launches_by_size": by_size,
+              "nms_host_syncs_per_step": syncs, "peak_allocated_gib": peak}
+    state, result["profile"] = profile_train_step(
+        torch, trainer, state, batch, (cascade_mod, htc_mod, engine_mod),
+        HTC_TRAIN_STAGES, K12_PARTS, median)
+    state, k1, k2, sides = train_rois_rows(
+        torch, np, trainer, state, batch, [7, 14] * 3, (4, 5), (0, 1, 2, 3))
+    result["mean_roi_side_px_by_call"] = sides
+    result["stages_f32_max_abs_err"] = {
+        f"{key}_call{i}_{o}x{o}": [row["max_abs_err"], row.get("max_grad")]
+        for key, rows in (("K1", k1), ("K2", k2))
+        for (i, o, d), row in rows.items() if d == "float32"}
+    result["k1"] = {(o, d): r for (i, o, d), r in k1.items() if i >= 4}
+    result["k2"] = {(o, d): r for (i, o, d), r in k2.items() if i >= 4}
+    return result
+
+
+def htc_cli_phase(torch, np, tmp):
+    """The three CLIs on the headline HTC config as it stands: ``python
+    -m iif_torch.cli.train_det`` in the process over HTC_CLI_IMAGES
+    seeded LVIS-style PNGs, one epoch of HTC_CLI_STEPS b4 steps (K1 and K2
+    from 0: three a size a step), ``epoch_1.pth`` with mmdet's HTC names;
+    ``--resume-from`` it restoring the weights bit for bit and the step;
+    ``python -m iif_torch.cli.test_det`` on the work directory over as
+    many val PNGs (``results.json``, K1 three 7x7 and one 14x14 a batch),
+    the val set's gt as detections scoring AP 1; one HTTP request through
+    ``cli.serve``'s ``make_server`` on the checkpoint (a PNG body)."""
+    import threading
+    import urllib.request
+
+    from iif_torch.cli import test_det, train_det
+    from iif_torch.cli.serve import make_server
+    from iif_torch.config import Config, parse_cfg_options
+    from iif_torch.detection.datasets import build_dataset
+    from iif_torch.detection.image_io import write_png
+    from iif_torch.detection.inference import init_detector
+    from iif_torch.tools.synthetic_lvis import COCO_SIZES, write_synthetic_lvis
+
+    sizes = [COCO_SIZES[i % 3] for i in range(HTC_CLI_IMAGES)]
+    train = write_synthetic_lvis(str(tmp / "htc_train"), sizes, NUM_CLASSES,
+                                 seed=12)
+    val = write_synthetic_lvis(str(tmp / "htc_val"), sizes, NUM_CLASSES,
+                               seed=13)
+    options = [f"data.train.ann_file={train['ann_file']}",
+               f"data.train.img_prefix={train['img_prefix']}",
+               f"data.test.ann_file={val['ann_file']}",
+               f"data.test.img_prefix={val['img_prefix']}",
+               "log_config.tensorboard=False"]
+    config = str(REPO / HTC_CONFIG)
+    work = tmp / "htc_work"
+    argv = [config, "--work-dir", str(work), "--max-steps",
+            str(HTC_CLI_STEPS)]
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    t0 = time.perf_counter()
+    trainer, state = train_det.main(argv + [
+        "--cfg-options", *options, "runner.max_epochs=1"])
+    train_s = time.perf_counter() - t0
+    on_train = roi_launches_by_size()
+    n = HTC_CLI_STEPS
+    check(type(trainer.model).__name__ == "HTC" and state.step == n,
+          f"{n} HTC steps: {state.step}")
+    check(on_train["K1"] == {7: 3 * n, 14: 3 * n}
+          and on_train["K2"] == {7: 3 * n, 14: 3 * n},
+          f"three K1 and K2 a size a step: {on_train}")
+    ckpt = work / "checkpoints" / "epoch_1.pth"
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    names = set(saved["state_dict"])
+    check("roi_head.mask_head.2.conv_res.conv.weight" in names
+          and "roi_head.mask_head.0.conv_res.conv.weight" not in names
+          and "roi_head.bbox_head.2.fc_cls.weight" in names,
+          "the checkpoint holds mmdet's HTC names")
+    resumed, rstate = train_det.main(argv + [
+        "--resume-from", str(ckpt), "--cfg-options", *options,
+        "runner.max_epochs=1"])
+    check(rstate.step == n, "--resume-from restores the step")
+    for k, v in resumed.model.state_dict().items():
+        check(torch.equal(v.cpu(), saved["state_dict"][k]),
+              f"--resume-from restores {k}")
+    del trainer, resumed
+
+    out_json = tmp / "htc_results.json"
+    reset_roi_launches()
+    t0 = time.perf_counter()
+    metrics = test_det.main([config, str(work), "--eval", "bbox", "segm",
+                             "--out", str(out_json), "--cfg-options",
+                             *options])
+    test_s = time.perf_counter() - t0
+    on_test = roi_launches_by_size()
+    batches = HTC_CLI_IMAGES // TRAIN_BATCH
+    check(on_test["K1"] == {7: 3 * batches, 14: batches}
+          and not on_test["K2"],
+          f"test_det: K1 three 7x7 and one 14x14 a batch: {on_test}")
+    records = json.loads(out_json.read_text())
+    check(records and {"image_id", "bbox", "score", "segmentation"}
+          <= set(records[0]), "results.json written")
+    cfg = Config.fromfile(config)
+    cfg.merge_from_options(parse_cfg_options(options))
+    ds = build_dataset(dict(cfg.data["test"]))
+    for iou_type in ("bbox", "segm"):
+        res = test_det.build_evaluator(ds, cfg).evaluate(
+            gt_as_detections(ds), iou_type)
+        check(res["AP"] == 1.0, f"gt as detections: {iou_type} AP 1")
+
+    det = init_detector(cfg, str(work / "checkpoints" / "latest.pth"),
+                        device="cuda")
+    png = tmp / "htc_request.png"
+    write_png(str(png), np.random.RandomState(5).randint(
+        0, 256, (480, 640, 3)).astype(np.uint8))
+    server = make_server(det, score_thr=0.0, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    reset_roi_launches()
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        with urllib.request.urlopen(base + "/ping", timeout=60) as r:
+            check(json.loads(r.read()) == {"status": "Healthy"}, "ping")
+        req = urllib.request.Request(base + "/predictions/htc",
+                                     data=png.read_bytes(), method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            preds = json.loads(r.read())
+        http_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the server thread stopped")
+    on_http = roi_launches_by_size()
+    check(isinstance(preds, list) and len(preds) > 0
+          and {"class_name", "bbox", "score"} <= set(preds[0]),
+          f"the HTTP request answers detections: {str(preds)[:200]}")
+    check(on_http["K1"] == {7: 3, 14: 1}, f"one HTC forward: {on_http}")
+    return {"train_s": train_s, "test_s": test_s, "http_ms": http_ms,
+            "http_detections": len(preds), "results": len(records),
+            "ap": {m: metrics[m] for m in ("bbox", "segm")},
+            "launches_train": on_train, "launches_test": on_test,
+            "launches_http": on_http}
+
+
+def x101_serving_phase(torch, np):
+    """``configs/activations/x101_4x4_1x.py`` as it stands (MaskRCNN
+    ResNeXt-101 32x4d, bf16, sigmoid CE with the fc_cls bias at -6.5,
+    softmax at inference) through ``init_detector`` with ``fresh_init_``
+    weights: X101_REQUESTS b1 requests, ms/image, K1's launches from 0
+    (once a size a request, ``vec8``), a request's RoI features and
+    scores against the plain RoIAlign, K1 on its RoIs."""
+    from iif_torch.detection.detector import MaskRCNN
+    from iif_torch.detection.inference import (
+        inference_detector,
+        init_detector,
+    )
+    from iif_torch.detection.init import fresh_init_
+    from iif_torch.ops.roi_align_ml import roi_align_ml
+
+    cfg, _ = lvis_cfg(np, X101_CONFIG, "test")
+    t0 = time.time()
+    det = init_detector(cfg, device="cuda")
+    fresh_init_(det.model, torch.Generator().manual_seed(0))
+    log(f"X101 init_detector + fresh_init_ s {time.time() - t0:.3f}")
+    m = det.model
+    conv2 = m.backbone.layer1[0].conv2
+    check(type(m) is MaskRCNN and conv2.groups == 32
+          and conv2.out_channels == 128 and len(m.backbone.layer3) == 23,
+          "ResNeXt-101 32x4d")
+    check(det.loss_cls.use_sigmoid and not det.loss_cls.custom_activation,
+          "sigmoid CE, softmax at inference")
+    check(bool((m.roi_head.bbox_head.fc_cls.bias == -6.5).all()),
+          "fc_cls bias -6.5")
+    _, images = serving_images(np)
+    inference_detector(det, images[0], masks=False)
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    ms, results = [], []
+    for i in range(X101_REQUESTS):
+        t0 = time.perf_counter()
+        results.append(inference_detector(det, images[i % len(images)],
+                                          masks=False))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    by_size = roi_launches_by_size()
+    n = X101_REQUESTS
+    check(by_size["K1"] == {7: n, 14: n}, f"K1 once a size: {by_size}")
+    check_vec8("K1 on the X101 path", roi_align_ml.launches_by_path, 2 * n)
+    for res in results:
+        check(res["boxes"].shape == (300, 4) and np.isfinite(
+            res["scores"]).all(), "300 finite detections")
+    seen = []
+    with patched(capture_extractor(seen)):
+        inference_detector(det, images[3], masks=False)
+    compare = features_vs_plain(torch, seen, [7, 14],
+                                lambda i: m.roi_head.bbox_head)
+    k1 = {}
+    for o, nhwc, rois, _ in seen:
+        for dt in (torch.float32, torch.bfloat16):
+            row = k1_row(torch, [f.float() for f in nhwc], rois, o, dt)
+            k1[(o, row["dtype"])] = row
+    return {"b1_ms_per_image": spread(ms), "launches": by_size["K1"],
+            "launches_by_size": by_size, "vs_plain": compare, "k1": k1,
+            "detector": det, "image": images[3]}
+
+
+def sigmoid_vs_cpu(torch, loss_cls, args):
+    """The sigmoid CE and its logits gradient on the card against the
+    same call on the CPU: the largest error over the largest magnitude."""
+    def run(dev):
+        score, labels, weight, avg = (a.detach().to(dev) for a in args)
+        score.requires_grad_(True)
+        loss = loss_cls(score, labels, weight=weight, avg_factor=avg)
+        loss.backward()
+        return loss.detach().cpu(), score.grad.cpu()
+
+    (lc, gc), (lp, gp) = run("cuda"), run("cpu")
+    return {"loss": float(lc), "loss_rel_err": abs(float(lc - lp))
+            / abs(float(lp)),
+            "grad_rel_err": float((gc - gp).abs().max() / gp.abs().max())}
+
+
+def x101_training_phase(torch, np):
+    """The X101 sigmoid baseline through ``trainer_from_config`` at b4 on
+    the MaskRCNN cell's batch: TRAIN_WARMUP + HTC_TIMED steps, ms/step,
+    peak memory, K1's and K2's launches from 0 (once a size a step), the
+    profiled step's stages (``backbone_fpn`` beside HTC R101's); the
+    sigmoid loss of a step's own logits on the card against the CPU
+    (within SIGMOID_REL_TOL); K1 and K2 on a step's RoIs."""
+    import iif_torch.detection.detector as detector_mod
+    import iif_torch.engine.detection as engine_mod
+
+    trainer, cfg, _ = lvis_trainer(torch, np, X101_CONFIG)
+    check(trainer.model.backbone.layer4[0].conv2.groups == 32
+          and trainer.loss_cls.use_sigmoid, "X101 with sigmoid CE")
+    state = trainer.init_state()
+    batch = synthetic_train_batch(np, torch, "cuda")
+    calls = []
+    loss_call = type(trainer.loss_cls).__call__
+
+    def record(self, score, labels, weight=None, avg_factor=None, **kw):
+        if not calls:
+            calls.append((score, labels, weight, avg_factor))
+        return loss_call(self, score, labels, weight=weight,
+                         avg_factor=avg_factor, **kw)
+
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    torch.cuda.reset_peak_memory_stats()
+    n = TRAIN_WARMUP + HTC_TIMED
+    with patched((type(trainer.loss_cls), "__call__", record)):
+        state, times, rows = timed_steps(
+            torch, trainer, state, batch, ((0, n, TRAIN_WARMUP),),
+            label="X101")
+    by_size = roi_launches_by_size()
+    check(by_size["K1"] == {7: n, 14: n} and by_size["K2"] == {7: n, 14: n},
+          f"K1 and K2 once a size a step: {by_size}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sig = sigmoid_vs_cpu(torch, trainer.loss_cls, calls[0])
+    log("sigmoid CE card vs CPU", json.dumps(sig))
+    check(sig["loss_rel_err"] <= SIGMOID_REL_TOL
+          and sig["grad_rel_err"] <= SIGMOID_REL_TOL,
+          f"the sigmoid CE on the card agrees with the CPU's: {sig}")
+    median = statistics.median(times[0])
+    result = {"steps": n, "step_ms": spread(times[0]),
+              "img_per_s": TRAIN_BATCH * 1e3 / median,
+              "first_loss": rows[0]["loss"], "last_loss": rows[-1]["loss"],
+              "launches_by_size": by_size, "peak_allocated_gib": peak,
+              "sigmoid_vs_cpu": sig, "sigmoid_tolerance": SIGMOID_REL_TOL}
+    state, result["profile"] = profile_train_step(
+        torch, trainer, state, batch, (detector_mod, engine_mod),
+        TRAIN_STAGES, K12_PARTS, median)
+    state, k1, k2, _ = train_rois_rows(torch, np, trainer, state, batch,
+                                       [7, 14], (0, 1))
+    result["k1"] = {(o, d): r for (_, o, d), r in k1.items()}
+    result["k2"] = {(o, d): r for (_, o, d), r in k2.items()}
+    return result
+
+
+def sigmoid_cascade_phase(torch, np):
+    """``configs/activations/cascade_r50_4x4_1x.py`` as it stands
+    (Cascade Mask R-CNN R50, sigmoid CE, ``grad_clip`` 35) through
+    ``trainer_from_config`` at b4: a warm-up step and
+    SIGMOID_CASCADE_STEPS timed ones, K1's and K2's launches from 0
+    (three a size a step)."""
+    trainer, _, _ = lvis_trainer(torch, np, SIGMOID_CASCADE_CONFIG)
+    m = trainer.model
+    check(type(m).__name__ == "CascadeMaskRCNN" and len(m.backbone.layer3)
+          == 6 and trainer.loss_cls.use_sigmoid
+          and trainer.grad_clip == CASCADE_CLIP,
+          "sigmoid cascade R50 with clip 35")
+    batch = synthetic_train_batch(np, torch, "cuda")
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    torch.cuda.reset_peak_memory_stats()
+    n = 1 + SIGMOID_CASCADE_STEPS
+    state, times, rows = timed_steps(
+        torch, trainer, trainer.init_state(), batch, ((0, n, 1),),
+        label="sigmoid cascade")
+    by_size = roi_launches_by_size()
+    for k in ("K1", "K2"):
+        check(by_size[k] == {7: 3 * n, 14: 3 * n},
+              f"{k} three a size a step: {by_size[k]}")
+    return {"steps": n, "step_ms": spread(times[0]),
+            "grad_norms": [r["grad_norm"] for r in rows],
+            "last_loss": rows[-1]["loss"], "launches_by_size": by_size,
             "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
@@ -3709,6 +4192,7 @@ def main() -> int:
     import iif_torch.detection.c4 as c4_mod
     import iif_torch.detection.cascade as cascade_mod
     import iif_torch.detection.detector as detector_mod
+    import iif_torch.detection.htc as htc_mod
 
     kern = kernel_phase(torch, np)
     kern_train, kern_grad = kernel_train_phase(torch, np)
@@ -3724,6 +4208,16 @@ def main() -> int:
     log("cascade serving", json.dumps({k: v for k, v in cascade.items()
                                        if k not in ("detector", "image")}),
         "card", card)
+    htc = htc_serving_phase(torch, np)
+    htc_k1 = htc.pop("k1")
+    log("HTC serving", json.dumps({k: v for k, v in htc.items()
+                                   if k not in ("detector", "image")}),
+        "card", card)
+    x101 = x101_serving_phase(torch, np)
+    x101_k1 = x101.pop("k1")
+    log("X101 serving", json.dumps({k: v for k, v in x101.items()
+                                    if k not in ("detector", "image")}),
+        "card", card)
     prof = profile_phase(torch, serve.pop("detector"), serve.pop("image"),
                          detector_mod, STAGES, "roi_align_ml")
     log("profile b1", json.dumps(prof))
@@ -3731,6 +4225,17 @@ def main() -> int:
                                  cascade.pop("image"), cascade_mod,
                                  CASCADE_STAGES, "roi_align_ml")
     log("cascade profile b1", json.dumps(cascade_prof))
+    htc_prof = profile_phase(torch, htc.pop("detector"), htc.pop("image"),
+                             (cascade_mod, htc_mod), HTC_STAGES,
+                             "roi_align_ml")
+    log("HTC profile b1", json.dumps(htc_prof), "card", card)
+    x101_prof = profile_phase(torch, x101.pop("detector"),
+                              x101.pop("image"), detector_mod, STAGES,
+                              "roi_align_ml")
+    log("X101 profile b1", json.dumps(x101_prof), "card", card)
+    log("backbone_fpn kernel ms at b1: X101",
+        x101_prof["stages"]["backbone_fpn"]["kernel_ms"], "R101 (HTC)",
+        htc_prof["stages"]["backbone_fpn"]["kernel_ms"], "card", card)
     c4 = c4_serving_phase(torch, np)
     log("C4 serving", json.dumps({k: v for k, v in c4.items()
                                   if k not in ("detector", "image")}),
@@ -3778,6 +4283,22 @@ def main() -> int:
     log("FASA dynamic runner", json.dumps(fasa_cli), "card", card)
     fasa_r50 = fasa_r50_phase(torch, np)
     log("FASA MaskRCNN R50", json.dumps(fasa_r50), "card", card)
+    htc_train = htc_training_phase(torch, np)
+    htrain_k1, htrain_k2 = htc_train.pop("k1"), htc_train.pop("k2")
+    log("HTC training", json.dumps(htc_train), "card", card)
+    with tempfile.TemporaryDirectory() as tmp:
+        htc_cli = htc_cli_phase(torch, np, Path(tmp))
+    log("HTC CLIs", json.dumps(htc_cli), "card", card)
+    x101_train = x101_training_phase(torch, np)
+    xtrain_k1, xtrain_k2 = x101_train.pop("k1"), x101_train.pop("k2")
+    log("X101 training", json.dumps(x101_train), "card", card)
+    log("backbone_fpn kernel ms a b4 step: X101",
+        x101_train["profile"]["stages"]["backbone_fpn"]["kernel_ms"],
+        "R101 (HTC)",
+        htc_train["profile"]["stages"]["backbone_fpn"]["kernel_ms"],
+        "card", card)
+    sig_cascade = sigmoid_cascade_phase(torch, np)
+    log("sigmoid cascade R50", json.dumps(sig_cascade), "card", card)
     eval_k1 = {}
     for o, rois in ((7, eval_rois7), (14, eval_rois14)):
         for dt in (torch.float32, torch.bfloat16):
@@ -3953,15 +4474,65 @@ def main() -> int:
                 {"cascade_training": cascade_train["launches"][key][o]},
                 "on the 800x1344 canvas's levels, a training step's own "
                 "maps and stage-3 RoIs"))
-    # the FASA family's paths: each row gets its own output size's count
-    fasa_paths = {"cascade_serving": cascade["launches_by_size"],
-                  "cascade_training": cascade_train["launches_by_size"],
-                  "fasa_train_cli": fasa_cli["launches_train"],
-                  "fasa_val": fasa_cli["launches_val"],
-                  "fasa_r50": fasa_r50["launches_by_size"]}
+    # K1 on the HTC serving path's stage-3 RoIs and detections, K1 and K2
+    # on the HTC training step's stage-3 RoIs, K1 on the X101 serving
+    # request's RoIs and K1 and K2 on its training step's, each with its
+    # path's launches
+    htc_serve_by_size = htc["launches_by_size"]["K1"]
+    htc_rows = {(7, d): htc_k1[("stage2", d)] for d in ("float32",
+                                                       "bfloat16")}
+    htc_rows.update({(14, d): htc_k1[("mask", d)] for d in ("float32",
+                                                            "bfloat16")})
+    for o in (7, 14):
+        kernels.append(path_row(
+            htc_rows, o, "K1", "htc", {"htc_serving": htc_serve_by_size[o]},
+            "on the 800x1344 canvas's levels, a served HTC request's own "
+            "maps and " + ("stage-3 RoIs" if o == 7 else "detections")))
+        if o == 7:
+            kernels[-1]["stages_max_abs_err"] = {
+                f"{st}_{d}": htc_k1[(st, d)]["max_abs_err"]
+                for st in ("stage0", "stage1", "stage2")
+                for d in ("float32", "bfloat16")}
+        for key, rows in (("K1", htrain_k1), ("K2", htrain_k2)):
+            kernels.append(path_row(
+                rows, o, key, "htc_train",
+                {"htc_training": htc_train["launches"][key][o]},
+                "on the 800x1344 canvas's levels, an HTC training step's "
+                "own maps and stage-3 RoIs (" + ("refined, re-sampled "
+                "mask RoIs" if o == 14 else "box RoIs") + ")"))
+            kernels[-1]["stages_f32_max_abs_err"] = {
+                k: v for k, v in htc_train["stages_f32_max_abs_err"].items()
+                if k.startswith(key + "_") and k.endswith(f"{o}x{o}")}
+        kernels.append(path_row(
+            x101_k1, o, "K1", "x101",
+            {"x101_serving": x101["launches"][o]},
+            "on the 800x1344 canvas's levels, a served X101 request's own "
+            "maps and RoIs"))
+        for key, rows in (("K1", xtrain_k1), ("K2", xtrain_k2)):
+            kernels.append(path_row(
+                rows, o, key, "x101_train",
+                {"x101_training": x101_train["launches_by_size"][key][o]},
+                "on the 800x1344 canvas's levels, an X101 training step's "
+                "own maps and RoIs"))
+    # the FASA and activations families' paths: each row gets its own
+    # output size's count
+    family_paths = {"cascade_serving": cascade["launches_by_size"],
+                    "cascade_training": cascade_train["launches_by_size"],
+                    "fasa_train_cli": fasa_cli["launches_train"],
+                    "fasa_val": fasa_cli["launches_val"],
+                    "fasa_r50": fasa_r50["launches_by_size"],
+                    "htc_serving": htc["launches_by_size"],
+                    "htc_training": htc_train["launches_by_size"],
+                    "htc_train_cli": htc_cli["launches_train"],
+                    "htc_test_cli": htc_cli["launches_test"],
+                    "htc_http": htc_cli["launches_http"],
+                    "x101_serving": x101["launches_by_size"],
+                    "x101_training": x101_train["launches_by_size"],
+                    "sigmoid_cascade_training":
+                        sig_cascade["launches_by_size"]}
     for row in kernels:
         side = int(re.search(r"_(\d+)x\1(_|$)", row["name"]).group(1))
-        for path, counts in fasa_paths.items():
+        for path, counts in family_paths.items():
             row["launches_by_path"].setdefault(
                 path, counts[KERNEL_OF[row["replaces"]]].get(side, 0))
         row["launches_by_path"]["classification_cifar"] = \

@@ -10,9 +10,9 @@ Endpoints (TorchServe-compatible shapes, ``mmdet_handler.py:31-70``):
     GET  /ping                 -> {"status": "Healthy"}
     POST /predictions/<name>   -> [{"class_name", "bbox", "score"}, ...]
 
-The POST body is raw image bytes (any cv2-decodable format) or JSON
-``{"data": "<base64>"}`` — the two encodings the reference handler's
-``preprocess`` accepts. Detections below ``--score-thr`` (handler
+The POST body is raw image bytes (PNG, decoded without cv2, or any other
+cv2-decodable format) or JSON ``{"data": "<base64>"}`` — the two
+encodings the reference handler's ``preprocess`` accepts. Detections below ``--score-thr`` (handler
 default 0.5) are dropped. Requests are serialized through a lock; the
 first forward runs once at startup as a warmup call.
 """
@@ -105,6 +105,7 @@ def make_server(detector, classes=None, score_thr: float = 0.5,
                 ) -> ThreadingHTTPServer:
     """Build (without starting) the HTTP server bound to ``detector``.
     ``max_batch > 1`` turns on dynamic micro-batching."""
+    from iif_torch.detection.image_io import decode_image
     from iif_torch.detection.inference import inference_detector
 
     lock = threading.Lock()
@@ -136,19 +137,16 @@ def make_server(detector, classes=None, score_thr: float = 0.5,
                 self._reply(404, {"error": f"no route {self.path}"})
                 return
             try:
-                import cv2
-
                 n = int(self.headers.get("Content-Length", 0))
                 raw = self.rfile.read(n)
                 ctype = self.headers.get("Content-Type", "")
                 if ctype.startswith("application/json"):
                     raw = base64.b64decode(json.loads(raw)["data"])
-                img = cv2.imdecode(np.frombuffer(raw, np.uint8),
-                                   cv2.IMREAD_COLOR)
-                if img is None:
+                try:
+                    img = decode_image(raw, "request body")
+                except ValueError:
                     self._reply(400, {"error": "undecodable image"})
                     return
-                img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
                 if batcher is not None:
                     result = batcher.infer(img)
                 else:

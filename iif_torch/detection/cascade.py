@@ -11,14 +11,16 @@ through the loss's activation, and so are the mask probabilities. With
 FASA each stage owns a ``FasaState``.
 
 Parameters take mmdet's cascade names, ``roi_head.bbox_head.{i}.*`` and
-``roi_head.mask_head.{i}.*`` beside the trunk's. Each stage of
+``roi_head.mask_head.{i}.*`` beside the trunk's. HTC (``detection/
+htc.py``) shares the box half: ``trunk_rpn_loss``, ``stage_bbox_loss``
+and ``cascade_detect``, its mask heads from ``make_mask_head``. Each stage of
 ``cascade_loss`` and ``cascade_simple_test`` is a ``record_function``
 span (``stage{i}_*``), so a ``torch.profiler`` trace splits a step or a
 request by stage.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -55,12 +57,13 @@ STAGE_WEIGHTS = (1.0, 0.5, 0.25)
 
 class CascadeRoIHead(nn.Module):
     """Container for mmdet's ``roi_head.bbox_head.{i}`` and
-    ``roi_head.mask_head.{i}`` names, one head a stage."""
+    ``roi_head.mask_head.{i}`` names, one head a stage (``mask_heads``
+    as the detector builds them, or None)."""
 
-    def __init__(self, num_classes: int, with_mask: bool,
-                 cls_init: tuple, cls_predictor: str, mask_predictor: str,
-                 cls_temperature: float, mask_temperature: float,
-                 reg_class_agnostic: bool):
+    def __init__(self, num_classes: int, cls_init: tuple,
+                 cls_predictor: str, cls_temperature: float,
+                 reg_class_agnostic: bool,
+                 mask_heads: Optional[Sequence[nn.Module]]):
         super().__init__()
         self.bbox_head = nn.ModuleList([
             Shared2FCBBoxHead(num_classes, cls_init=cls_init,
@@ -68,10 +71,8 @@ class CascadeRoIHead(nn.Module):
                               cls_temperature=cls_temperature,
                               reg_class_agnostic=reg_class_agnostic)
             for _ in STAGE_IOUS])
-        self.mask_head = nn.ModuleList([
-            FCNMaskHead(num_classes, predictor=mask_predictor,
-                        temperature=mask_temperature)
-            for _ in STAGE_IOUS]) if with_mask else None
+        self.mask_head = (None if mask_heads is None
+                          else nn.ModuleList(mask_heads))
 
 
 class CascadeMaskRCNN(TwoStageTrunk):
@@ -93,17 +94,21 @@ class CascadeMaskRCNN(TwoStageTrunk):
                  reg_class_agnostic: bool = True,
                  cls_init: tuple = ("normal", 0.01),
                  stage_stds: Sequence[Sequence[float]] = STAGE_STDS):
-        if backbone_type != "resnet":
-            raise NotImplementedError(
-                f"backbone_type {backbone_type!r} is not ported")
         super().__init__(num_classes, depth, with_mask, frozen_stages,
-                         norm_eval, compute_dtype)
+                         norm_eval, compute_dtype, backbone_type)
         self.reg_class_agnostic = reg_class_agnostic
         self.stage_stds = tuple(tuple(s) for s in stage_stds)
         self.roi_head = CascadeRoIHead(
-            num_classes, with_mask, tuple(cls_init),
-            cls_predictor, mask_predictor, cls_temperature,
-            mask_temperature, reg_class_agnostic)
+            num_classes, tuple(cls_init), cls_predictor, cls_temperature,
+            reg_class_agnostic,
+            [self.make_mask_head(i, mask_predictor, mask_temperature)
+             for i in range(self.num_stages)] if with_mask else None)
+
+    def make_mask_head(self, stage: int, predictor: str,
+                       temperature: float) -> nn.Module:
+        """Stage ``stage``'s mask head."""
+        return FCNMaskHead(self.num_classes, predictor=predictor,
+                           temperature=temperature)
 
 
 def _select_pred(bbox_pred: torch.Tensor, labels: torch.Tensor,
@@ -131,6 +136,98 @@ def _rois5(boxes: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(b, dtype=torch.float32,
                        device=boxes.device).repeat_interleave(r)
     return torch.cat([idx[:, None], boxes.reshape(-1, 4)], 1)
+
+
+class StageBBox(NamedTuple):
+    """One stage's sampled targets, classifier output and box losses."""
+    tgts: Any
+    labels: torch.Tensor        # (B*R,)
+    embedding: torch.Tensor     # (B*R, 1024), FASA's
+    pred4: torch.Tensor         # (B*R, 4) label-selected regression
+    loss_cls: torch.Tensor      # times the stage's weight
+    loss_bbox: torch.Tensor
+
+    def refined(self, model, stage: int, img_hw: Tuple[int, int]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The sampled RoIs refined by the detached regression with the
+        stage's stds, (B, R, 4), and their validity (the label weight)."""
+        b, r = self.tgts.rois.shape[:2]
+        boxes = _refine(self.tgts.rois.reshape(-1, 4), self.pred4.detach(),
+                        img_hw, model.stage_stds[stage])
+        return boxes.reshape(b, r, 4), self.tgts.label_weights > 0
+
+
+def trunk_rpn_loss(model, batch: Dict[str, torch.Tensor], cfg: DetTrainCfg,
+                   generator: Optional[torch.Generator],
+                   noise: Dict[str, Any]):
+    """The trunk's FPN maps as NHWC views (P2..P5), the RPN's losses and
+    the proposals (``backbone_fpn``, ``rpn_loss``, ``rpn_proposals``
+    spans). Returns (nhwc, losses, proposals, proposal_valid)."""
+    images = batch["image"]
+    img_h, img_w = images.shape[1:3]
+    dev = images.device
+    with record_function("backbone_fpn"):
+        feats = model.extract_feat(images)
+    with record_function("rpn_loss"):
+        cls_scores, bbox_preds = model.rpn_head(feats)
+        anchors, anchor_valid = model.train_anchors((img_h, img_w), dev)
+        l_rpn_cls, l_rpn_bbox = rpn_loss(
+            cls_scores, bbox_preds, anchors, anchor_valid, batch["gt_boxes"],
+            batch["gt_valid"], num_samples=cfg.rpn_num_samples,
+            pos_fraction=cfg.rpn_pos_fraction, noise=noise.get("rpn"),
+            generator=generator)
+    with record_function("rpn_proposals"):
+        proposals, _, prop_valid = rpn_proposals(
+            [s.detach() for s in cls_scores],
+            [d.detach() for d in bbox_preds],
+            model.anchors((img_h, img_w), dev), (img_h, img_w),
+            nms_pre=cfg.rpn_nms_pre, max_per_img=cfg.rpn_max_per_img,
+            nms_iou=cfg.rpn_nms_iou)
+    nhwc = [f.permute(0, 2, 3, 1) for f in feats[:4]]
+    return nhwc, {"loss_rpn_cls": l_rpn_cls, "loss_rpn_bbox": l_rpn_bbox}, \
+        proposals, prop_valid
+
+
+def stage_bbox_loss(model, stage: int, nhwc, proposals: torch.Tensor,
+                    prop_valid: torch.Tensor, batch: Dict[str, torch.Tensor],
+                    loss_cls, cfg: DetTrainCfg,
+                    generator: Optional[torch.Generator],
+                    noise: Dict[str, Any]) -> StageBBox:
+    """One cascade stage's box branch (``stage{i}_targets``,
+    ``_bbox_roi_align``, ``_bbox_head_loss`` spans): MaxIoU at the stage's
+    IoU (the gt boxes join the proposals in stage 0 only), the sampled
+    RoIs' 7x7 features, the head, the classification loss and the L1 box
+    loss on the targets decoded with the default stds and encoded again
+    with the stage's, each times the stage's weight."""
+    iou, stds = STAGE_IOUS[stage], model.stage_stds[stage]
+    sw = STAGE_WEIGHTS[stage]
+    n = model.num_classes
+    with record_function(f"stage{stage}_targets"):
+        tgts = bbox_targets(
+            proposals, prop_valid, batch["gt_boxes"], batch["gt_labels"],
+            batch["gt_valid"], n, num_samples=cfg.rcnn_num_samples,
+            pos_fraction=cfg.rcnn_pos_fraction,
+            noise=noise["rcnn"][stage] if "rcnn" in noise else None,
+            generator=generator, pos_iou_thr=iou, neg_iou_thr=iou,
+            min_pos_iou=iou, add_gt_as_proposals=stage == 0)
+        labels = tgts.labels.reshape(-1)
+        lw = tgts.label_weights.reshape(-1)
+        bw = tgts.bbox_weights.reshape(-1)
+    with record_function(f"stage{stage}_bbox_roi_align"):
+        roi_feats = SingleRoIExtractor((7, 7))(nhwc, _rois5(tgts.rois))
+    with record_function(f"stage{stage}_bbox_head_loss"):
+        cls_score, bbox_pred, embedding = model.roi_head.bbox_head[stage](
+            roi_feats)
+        l_cls = sw * loss_cls(cls_score, labels, weight=lw,
+                              avg_factor=lw.sum())
+        rois = tgts.rois.reshape(-1, 4)
+        gt_boxes_roi = delta2bbox(rois, tgts.bbox_targets.reshape(-1, 4),
+                                  BBOX_TARGET_MEANS, BBOX_TARGET_STDS)
+        tgt = bbox2delta(rois, gt_boxes_roi, (0.0, 0.0, 0.0, 0.0), stds)
+        pred4 = _select_pred(bbox_pred, labels, n, model.reg_class_agnostic)
+        l1 = torch.abs(pred4 - tgt).sum(-1)
+        l_bbox = sw * (l1 * bw).sum() / torch.clamp(lw.sum(), min=1.0)
+    return StageBBox(tgts, labels, embedding, pred4, l_cls, l_bbox)
 
 
 def cascade_loss(
@@ -161,97 +258,49 @@ def cascade_loss(
     ``s{i}.loss_cls``, ``s{i}.loss_bbox``, ``s{i}.loss_mask``) and
     ``aux["fasa_state"]`` when FASA is on."""
     noise = noise or {}
-    images = batch["image"]
-    b, img_h, img_w, _ = images.shape
-    dev = images.device
-    gt_boxes, gt_valid = batch["gt_boxes"], batch["gt_valid"]
-    n = model.num_classes
-
-    with record_function("backbone_fpn"):
-        feats = model.extract_feat(images)
-    with record_function("rpn_loss"):
-        cls_scores, bbox_preds = model.rpn_head(feats)
-        anchors, anchor_valid = model.train_anchors((img_h, img_w), dev)
-        l_rpn_cls, l_rpn_bbox = rpn_loss(
-            cls_scores, bbox_preds, anchors, anchor_valid, gt_boxes,
-            gt_valid, num_samples=cfg.rpn_num_samples,
-            pos_fraction=cfg.rpn_pos_fraction, noise=noise.get("rpn"),
-            generator=generator)
-    with record_function("rpn_proposals"):
-        proposals, _, prop_valid = rpn_proposals(
-            [s.detach() for s in cls_scores],
-            [d.detach() for d in bbox_preds],
-            model.anchors((img_h, img_w), dev), (img_h, img_w),
-            nms_pre=cfg.rpn_nms_pre, max_per_img=cfg.rpn_max_per_img,
-            nms_iou=cfg.rpn_nms_iou)
-    losses: Dict[str, torch.Tensor] = {
-        "loss_rpn_cls": l_rpn_cls, "loss_rpn_bbox": l_rpn_bbox}
-    nhwc = [f.permute(0, 2, 3, 1) for f in feats[:4]]
+    b, img_h, img_w, _ = batch["image"].shape
+    nhwc, losses, proposals, prop_valid = trunk_rpn_loss(
+        model, batch, cfg, generator, noise)
     r, m = cfg.rcnn_num_samples, cfg.num_mask_rois
     gt_masks = (resolve_gt_masks(batch, img_w // cfg.mask_gt_stride)
                 if model.with_mask else None)
     new_fasa = []
 
     for stage in range(model.num_stages):
-        iou, stds = STAGE_IOUS[stage], model.stage_stds[stage]
         sw = STAGE_WEIGHTS[stage]
-        with record_function(f"stage{stage}_targets"):
-            tgts = bbox_targets(
-                proposals, prop_valid, gt_boxes, batch["gt_labels"],
-                gt_valid, n, num_samples=r,
-                pos_fraction=cfg.rcnn_pos_fraction,
-                noise=noise["rcnn"][stage] if "rcnn" in noise else None,
-                generator=generator, pos_iou_thr=iou, neg_iou_thr=iou,
-                min_pos_iou=iou, add_gt_as_proposals=stage == 0)
-            rois5 = _rois5(tgts.rois)
-            labels = tgts.labels.reshape(-1)
-            lw = tgts.label_weights.reshape(-1)
-            bw = tgts.bbox_weights.reshape(-1)
-        with record_function(f"stage{stage}_bbox_roi_align"):
-            roi_feats = SingleRoIExtractor((7, 7))(nhwc, rois5)
-        with record_function(f"stage{stage}_bbox_head_loss"):
-            head = model.roi_head.bbox_head[stage]
-            cls_score, bbox_pred, embedding = head(roi_feats)
-            l_cls = sw * loss_cls(cls_score, labels, weight=lw,
-                                             avg_factor=lw.sum())
-            rois = tgts.rois.reshape(-1, 4)
-            gt_boxes_roi = delta2bbox(rois, tgts.bbox_targets.reshape(-1, 4),
-                                      BBOX_TARGET_MEANS, BBOX_TARGET_STDS)
-            tgt = bbox2delta(rois, gt_boxes_roi, (0.0, 0.0, 0.0, 0.0), stds)
-            pred4 = _select_pred(bbox_pred, labels, n,
-                                 model.reg_class_agnostic)
-            l1 = torch.abs(pred4 - tgt).sum(-1)
-            l_bbox = sw * (l1 * bw).sum() / torch.clamp(lw.sum(), min=1.0)
+        st = stage_bbox_loss(model, stage, nhwc, proposals, prop_valid,
+                             batch, loss_cls, cfg, generator, noise)
+        tgts, l_cls = st.tgts, st.loss_cls
         if fasa_state is not None:
             with record_function(f"stage{stage}_fasa"):
-                st, l_aug = fasa_step(
-                    fasa_state[stage], embedding, labels, bw, head.cls_only,
-                    loss_cls, fasa_cfg, epoch, generator,
+                fs, l_aug = fasa_step(
+                    fasa_state[stage], st.embedding, st.labels,
+                    tgts.bbox_weights.reshape(-1),
+                    model.roi_head.bbox_head[stage].cls_only, loss_cls,
+                    fasa_cfg, epoch, generator,
                     noise["fasa"][stage] if "fasa" in noise else None)
             if l_aug is not None:
                 l_cls = l_cls + sw * l_aug
-            new_fasa.append(st)
+            new_fasa.append(fs)
         losses[f"s{stage}.loss_cls"] = l_cls
-        losses[f"s{stage}.loss_bbox"] = l_bbox
+        losses[f"s{stage}.loss_bbox"] = st.loss_bbox
 
         if model.with_mask:
             with record_function(f"stage{stage}_mask_loss"):
-                pos_rois5 = rois5.reshape(b, r, 5)[:, :m].reshape(-1, 5)
+                pos_rois5 = _rois5(tgts.rois[:, :m])
                 pos_labels = tgts.labels[:, :m].reshape(-1)
                 mask_tgt = mask_targets(
                     pos_rois5, tgts.pos_gt_inds[:, :m].reshape(-1),
                     gt_masks, cfg.mask_size, gt_stride=cfg.mask_gt_stride)
                 mfeats = SingleRoIExtractor((14, 14))(nhwc, pos_rois5)
                 mask_pred = model.roi_head.mask_head[stage].logits_for_labels(
-                    mfeats, torch.clamp(pos_labels, 0, n - 1))
+                    mfeats, torch.clamp(pos_labels, 0, model.num_classes - 1))
                 losses[f"s{stage}.loss_mask"] = sw * mask_head_loss(
                     mask_pred, mask_tgt,
                     tgts.bbox_weights[:, :m].reshape(-1))
 
         if stage < model.num_stages - 1:
-            proposals = _refine(rois, pred4.detach(), (img_h, img_w),
-                                stds).reshape(b, r, 4)
-            prop_valid = tgts.label_weights > 0
+            proposals, prop_valid = st.refined(model, stage, (img_h, img_w))
 
     aux: Dict[str, Any] = {}
     if fasa_state is not None:
@@ -259,21 +308,14 @@ def cascade_loss(
     return sum(losses.values()), losses, aux
 
 
-@torch.inference_mode()
-def cascade_simple_test(
-    model: CascadeMaskRCNN,
-    images: torch.Tensor,
-    loss_cls,
-    cfg: DetTestCfg = DetTestCfg(),
-    scale_factor: Optional[torch.Tensor] = None,
-) -> Dict[str, torch.Tensor]:
-    """Inference on (B, H, W, 3) canvases (``cascade.py:308-393``): each
-    stage scores the current RoIs and refines them by its argmax
-    foreground class; the class scores, through the loss's
-    activation, are averaged over the stages, and the boxes are the last
-    stage's refinement; multiclass NMS; the mask probabilities of each
-    detection's class averaged over the stages' mask heads. Returns the
-    fixed-shape dict of ``maskrcnn_simple_test``."""
+def cascade_detect(model: CascadeMaskRCNN, images: torch.Tensor, loss_cls,
+                   cfg: DetTestCfg) -> Tuple[Dict[str, torch.Tensor], list]:
+    """The box half of the cascade's inference: each stage scores the
+    current RoIs and refines them by its argmax foreground class; the
+    class scores, through the loss's activation, are averaged over the
+    stages, and the boxes are the last stage's refinement; multiclass
+    NMS. Returns the detections (boxes, scores, labels, valid) and the
+    FPN maps P2..P5 as NHWC views."""
     if cfg.nms_kind != "nms":
         raise NotImplementedError(f"nms_kind {cfg.nms_kind!r} is not ported")
     b, img_h, img_w, _ = images.shape
@@ -316,15 +358,31 @@ def cascade_simple_test(
                         model.stage_stds[-1]).reshape(b, p, 4)
         dets, scores, labels, det_valid = multiclass_nms(
             final, avg_scores, cfg.score_thr, cfg.nms_iou, cfg.max_per_img)
-    out = {"boxes": dets, "scores": scores, "labels": labels,
-           "valid": det_valid}
+    return {"boxes": dets, "scores": scores, "labels": labels,
+            "valid": det_valid}, nhwc
 
+
+@torch.inference_mode()
+def cascade_simple_test(
+    model: CascadeMaskRCNN,
+    images: torch.Tensor,
+    loss_cls,
+    cfg: DetTestCfg = DetTestCfg(),
+    scale_factor: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Inference on (B, H, W, 3) canvases (``cascade.py:308-393``): the
+    detections of ``cascade_detect``, then the mask probabilities of each
+    detection's class averaged over the stages' mask heads. Returns the
+    fixed-shape dict of ``maskrcnn_simple_test``."""
+    out, nhwc = cascade_detect(model, images, loss_cls, cfg)
+    dets, labels = out["boxes"], out["labels"]
     if model.with_mask:
-        k = dets.shape[1]
+        b, k = dets.shape[:2]
         with record_function("mask_roi_align"):
             mfeats = SingleRoIExtractor((14, 14))(nhwc, _rois5(dets))
         with record_function("mask_head"):
-            cls_idx = torch.clamp(labels.reshape(-1), 0, n - 1)
+            cls_idx = torch.clamp(labels.reshape(-1), 0,
+                                  model.num_classes - 1)
             probs = 0.0
             for head in model.roi_head.mask_head:
                 probs = probs + torch.sigmoid(

@@ -1,12 +1,14 @@
 """Weights carried across from the JAX package: ``maskrcnn_state_from_jax``,
-``cascade_state_from_jax`` and ``c4_state_from_jax`` turn an ``iif_tpu``
-MaskRCNN, CascadeMaskRCNN or C4FasterRCNN (params, batch_stats) pytree of
-numpy arrays into this port's mmdet-named state_dict.
+``cascade_state_from_jax``, ``htc_state_from_jax`` and
+``c4_state_from_jax`` turn an ``iif_tpu`` MaskRCNN, CascadeMaskRCNN, HTC
+or C4FasterRCNN (params, batch_stats) pytree of numpy arrays into this
+port's mmdet-named state_dict.
 
 It is the inverse of ``iif_tpu.detection.pretrained_det.
 convert_mmdet_maskrcnn``: HWIO -> OIHW convolutions, Dense (in, out) ->
 Linear (out, in), BN scale/bias/mean/var -> weight/bias/running_mean/
-running_var, the HWC -> CHW permutation of the first shared FC undone, and
+running_var (a grouped kernel (kh, kw, in/G, out) to (out, in/G, kh, kw)
+as any other), the HWC -> CHW permutation of the first shared FC undone, and
 the flip + transpose of the mask head's transposed conv undone. The
 normed predictors keep JAX's (in, out) kernels: ``NormedConv2d``'s as it
 stands, ``NormedLinear``'s less the 1 that JAX's forward subtracts (its
@@ -112,6 +114,8 @@ def _mask_head(sd, prefix: str, params) -> None:
     for name, p in params.items():
         if name == "upsample":
             _leaf(sd, prefix + ".upsample", p, _deconv)
+        elif name == "conv_res":                # HTC's information flow
+            _leaf(sd, prefix + ".conv_res.conv", p, _conv)
         elif name == "conv_logits":
             # NormedConv2d's (C_in, num_classes) kernel as it stands
             _leaf(sd, prefix + ".conv_logits", p,
@@ -149,6 +153,25 @@ def cascade_state_from_jax(params: Dict[str, Any],
         elif kind == "mask_head":
             _mask_head(sd, f"roi_head.mask_head.{i}", p)
     return sd
+
+
+def htc_state_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
+                       gradients: bool = False
+                       ) -> Dict[str, torch.Tensor]:
+    """``iif_tpu`` HTC variables (``bbox_head_{i}``, ``htc_mask_head_{i}``)
+    -> mmdet's HTC names (``roi_head.bbox_head.{i}.*``,
+    ``roi_head.mask_head.{i}.*`` with ``conv_res.conv``). Stage 0's
+    ``conv_res``, which JAX creates and never calls, is dropped: mmdet
+    builds none. The one direction, as for the cascade."""
+    stages = {}
+    for name, p in params.items():
+        kind, _, i = name.rpartition("_")
+        if kind == "htc_mask_head":
+            name = f"mask_head_{i}"
+            if i == "0":
+                p = {k: v for k, v in p.items() if k != "conv_res"}
+        stages[name] = p
+    return cascade_state_from_jax(stages, batch_stats, gradients)
 
 
 def c4_state_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]

@@ -99,21 +99,40 @@ class StandardRoIHead(nn.Module):
             temperature=mask_temperature) if with_mask else None
 
 
+def resnet_groups(backbone_type: str) -> Tuple[int, int]:
+    """``backbone_type`` -> (groups, width_per_group) of the trunk's
+    ResNet, as ``build_backbone`` parses it (``detector.py:400-403``):
+    ``"resnet"`` (1, 64), ``"resnext<G>x<W>d"`` (G, W). Any other value
+    raises ``NotImplementedError`` with its name."""
+    if backbone_type == "resnet":
+        return 1, 64
+    if backbone_type.startswith("resnext"):
+        g, w = backbone_type[len("resnext"):].split("x")
+        return int(g), int(w.rstrip("d"))
+    raise NotImplementedError(
+        f"backbone_type {backbone_type!r} is not ported")
+
+
 class TwoStageTrunk(nn.Module):
     """The ResNet + FPN + RPN trunk the two-stage detectors share, and
-    their anchors. ``frozen_stages`` and ``norm_eval`` shape the trunk's
-    training; ``compute_dtype`` is the trunk's (``"bfloat16"`` in the IIF
+    their anchors. ``backbone_type`` is ``"resnet"`` or a ResNeXt
+    (``"resnext32x4d"``: grouped 3x3 convolutions, ``resnet_groups``);
+    ``frozen_stages`` and ``norm_eval`` shape the trunk's training;
+    ``compute_dtype`` is the trunk's (``"bfloat16"`` in the IIF
     configs)."""
 
     def __init__(self, num_classes: int, depth: int, with_mask: bool,
-                 frozen_stages: int, norm_eval: bool, compute_dtype):
+                 frozen_stages: int, norm_eval: bool, compute_dtype,
+                 backbone_type: str = "resnet"):
         super().__init__()
         if isinstance(compute_dtype, str):
             compute_dtype = _DTYPES[compute_dtype]
+        groups, width = resnet_groups(backbone_type)
         self.num_classes = num_classes
         self.with_mask = with_mask
         self.backbone = ResNet(_DEPTH_LAYERS[depth], frozen_stages,
-                               norm_eval, compute_dtype)
+                               norm_eval, compute_dtype, groups=groups,
+                               width_per_group=width)
         self.neck = FPN(compute_dtype=compute_dtype)
         self.rpn_head = RPNHead(num_anchors=3, compute_dtype=compute_dtype)
         self._anchors: Dict[Any, list] = {}
@@ -153,7 +172,7 @@ class TwoStageTrunk(nn.Module):
 
 class MaskRCNN(TwoStageTrunk):
     """Takes the keyword arguments of a ``configs/`` model dict.
-    ``cls_predictor`` is ``"linear"`` or ``"normed"`` (``NormedLinear`` at
+    ``backbone_type`` as ``TwoStageTrunk`` takes it; ``cls_predictor`` is ``"linear"`` or ``"normed"`` (``NormedLinear`` at
     ``cls_temperature``), ``mask_predictor`` ``"conv"`` or ``"normed"``
     (``NormedConv2d`` at ``mask_temperature``); ``cls_init`` initialises
     a linear ``fc_cls`` in fresh weights (``fresh_init_``, as the JAX
@@ -162,11 +181,12 @@ class MaskRCNN(TwoStageTrunk):
     def __init__(self, num_classes: int = 1203, depth: int = 50,
                  with_mask: bool = True, frozen_stages: int = 1,
                  norm_eval: bool = True, compute_dtype=None,
+                 backbone_type: str = "resnet",
                  cls_predictor: str = "linear", mask_predictor: str = "conv",
                  cls_temperature: float = 8.0, mask_temperature: float = 20.0,
                  cls_init: tuple = ("normal", 0.01)):
         super().__init__(num_classes, depth, with_mask, frozen_stages,
-                         norm_eval, compute_dtype)
+                         norm_eval, compute_dtype, backbone_type)
         self.roi_head = StandardRoIHead(
             num_classes, with_mask, cls_init, cls_predictor, mask_predictor,
             cls_temperature, mask_temperature)
@@ -478,11 +498,16 @@ def maskrcnn_simple_test(
 def build_detector(model_cfg: Dict[str, Any]) -> nn.Module:
     """Config dict (``cfg.model``) -> ``MaskRCNN``, ``CascadeMaskRCNN``
     (type ``CascadeMaskRCNN`` or ``CascadeRCNN``, as the JAX registry
-    takes both) or ``C4FasterRCNN`` (``iif_tpu/detection/__init__.py``).
-    Other families are not ported."""
+    takes both), ``HTC`` (type ``HTC`` or ``HybridTaskCascade``) or
+    ``C4FasterRCNN`` (``iif_tpu/detection/__init__.py``). Other families
+    are not ported."""
     kw = dict(model_cfg)
     kind = kw.pop("type", "MaskRCNN")
     kw.pop("pretrained_backbone", None)
+    if kind in ("HTC", "HybridTaskCascade"):
+        from iif_torch.detection.htc import HTC
+
+        return HTC(**kw)
     if kind in ("CascadeMaskRCNN", "CascadeRCNN"):
         from iif_torch.detection.cascade import CascadeMaskRCNN
 

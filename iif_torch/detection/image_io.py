@@ -27,6 +27,12 @@ def read_image(path: str) -> np.ndarray:
             data = f.read()
     except FileNotFoundError:
         raise FileNotFoundError(path) from None
+    return decode_image(data, path)
+
+
+def decode_image(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """(H, W, 3) uint8 RGB of an image file's bytes: PNG without cv2,
+    any other format through ``cv2.imdecode``."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, path)
     try:
@@ -34,7 +40,7 @@ def read_image(path: str) -> np.ndarray:
     except ImportError:
         raise RuntimeError(f"{path}: only PNG is decoded without cv2, and "
                            "cv2 is not installed") from None
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     if img is None:
         raise ValueError(f"{path}: cv2 cannot decode this file")
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)

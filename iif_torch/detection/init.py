@@ -19,7 +19,10 @@ parameter and BN statistic from the family of its flax initialiser.
   ``lecun_normal``, a conv ``conv_logits`` ``normal(0.001)``, a normed
   one (``NormedConv2d``, ``mask_head.py:31``) ``lecun_normal`` over its
   (C_in, num_classes) kernel, biases 0.
-- Cascade Mask R-CNN: the trunk and each stage's heads as above.
+- HTC's mask head (``detection/htc.py:56-84``): the FCN head as above,
+  and its ``conv_res`` flax ``nn.Conv``'s defaults, ``lecun_normal``
+  with bias 0.
+- Cascade Mask R-CNN and HTC: the trunk and each stage's heads as above.
 - C4 bbox head (``detection/c4.py:51-57``): ``fc_cls`` ``normal(0.01)``,
   ``fc_reg`` ``normal(0.001)``, biases 0.
 
@@ -36,7 +39,11 @@ from torch import nn
 
 from iif_torch.detection.bbox_head import Shared2FCBBoxHead
 from iif_torch.detection.c4 import C4BBoxHead
-from iif_torch.detection.mask_head import FCNMaskHead, NormedConv2d
+from iif_torch.detection.mask_head import (
+    FCNMaskHead,
+    HTCMaskHead,
+    NormedConv2d,
+)
 from iif_torch.detection.necks import FPN
 from iif_torch.detection.rpn import RPNHead
 from iif_torch.models.layers import NormedLinear
@@ -119,6 +126,14 @@ def _mask_head(init: ParamInit, head: FCNMaskHead) -> None:
     init.bias(head.conv_logits)
 
 
+def _htc_mask_head(init: ParamInit, head: HTCMaskHead) -> None:
+    _mask_head(init, head)
+    if head.conv_res is not None:
+        w = head.conv_res.conv.weight
+        init.truncated_normal(w, math.sqrt(1.0 / (w.shape[1] * receptive(w))))
+        init.bias(head.conv_res.conv)
+
+
 def _c4_bbox_head(init: ParamInit, head: C4BBoxHead) -> None:
     init.normal(head.fc_cls.weight, 0.01)
     init.bias(head.fc_cls)
@@ -128,7 +143,8 @@ def _c4_bbox_head(init: ParamInit, head: C4BBoxHead) -> None:
 
 _FAMILIES = ((ResNet, _trunk), (ResLayer, _trunk), (FPN, _fpn),
              (RPNHead, _rpn), (Shared2FCBBoxHead, _bbox_head),
-             (FCNMaskHead, _mask_head), (C4BBoxHead, _c4_bbox_head))
+             (FCNMaskHead, _mask_head), (HTCMaskHead, _htc_mask_head),
+             (C4BBoxHead, _c4_bbox_head))
 
 
 def fresh_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:

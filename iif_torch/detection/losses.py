@@ -6,8 +6,10 @@ Per-class weights come from a reference-format CSV (row 0 is a background
 placeholder, dropped; the background weight 1.0 is appended) or from class
 frequencies. Training loss: CE(score x weights, label); inference
 activation: softmax(score x weights) in f32. ``DetCrossEntropyLoss`` is
-the plain softmax CE of the stock configs (Faster R-CNN C4). Each has
-``per_class_sums``, FASA's per-class loss counters.
+the plain softmax CE of the stock configs (Faster R-CNN C4) or, with
+``use_sigmoid``, the per-channel BCE of the ``configs/activations/``
+sigmoid baselines. Each has ``per_class_sums``, FASA's per-class loss
+counters.
 """
 from __future__ import annotations
 
@@ -122,20 +124,22 @@ class DetIIFLoss:
 
 class DetCrossEntropyLoss:
     """Plain (C+1)-way CE (the stock mmdet configs' ``CrossEntropyLoss``,
-    ``iif_tpu/detection/losses.py:184-205``): per-RoI softmax CE in f32,
-    weighted, summed and divided by ``avg_factor`` (at least 1); at
-    inference, a softmax over the logits. ``use_sigmoid`` (per-channel
-    BCE) is not ported."""
+    ``iif_tpu/detection/losses.py:166-220``): per-RoI softmax CE in f32,
+    weighted, summed and divided by ``avg_factor`` (at least 1). With
+    ``use_sigmoid`` the per-RoI loss is the BCE of each of the C+1
+    logits against the one-hot label, summed over the channels,
+    background included (mmdet's ``binary_cross_entropy`` with its
+    labels one-hot, summed by ``weight_reduce_loss``). Inference is a
+    softmax over the logits either way (``custom_activation`` is False,
+    as on mmdet's ``CrossEntropyLoss``)."""
 
     custom_activation = False
 
     def __init__(self, num_classes: int = 0, loss_weight: float = 1.0,
                  use_sigmoid: bool = False):
-        if use_sigmoid:
-            raise NotImplementedError(
-                "DetCrossEntropyLoss(use_sigmoid=True) is not ported")
         self.num_classes = num_classes
         self.loss_weight = loss_weight
+        self.use_sigmoid = use_sigmoid
 
     def to(self, device) -> "DetCrossEntropyLoss":
         return self
@@ -144,11 +148,18 @@ class DetCrossEntropyLoss:
                  weight: Optional[torch.Tensor] = None,
                  avg_factor: Optional[torch.Tensor] = None,
                  reduction: str = "mean") -> torch.Tensor:
-        # softmax_cross_entropy (iif_tpu/losses/ce.py:13): logsumexp minus
-        # the true logit, in f32
         logits = cls_score.float()
-        per = torch.logsumexp(logits, dim=-1) - logits.gather(
-            -1, labels.long()[..., None])[..., 0]
+        if self.use_sigmoid:
+            # max(s, 0) - s * onehot + log1p(exp(-|s|)) in f32, JAX's order
+            onehot = (labels.long()[..., None] == torch.arange(
+                logits.shape[-1], device=logits.device)).float()
+            per = (torch.clamp(logits, min=0.0) - logits * onehot
+                   + torch.log1p(torch.exp(-torch.abs(logits)))).sum(-1)
+        else:
+            # softmax_cross_entropy (iif_tpu/losses/ce.py:13): logsumexp
+            # minus the true logit, in f32
+            per = torch.logsumexp(logits, dim=-1) - logits.gather(
+                -1, labels.long()[..., None])[..., 0]
         if weight is not None:
             per = per * weight.to(per.dtype)
         if reduction == "none":

@@ -3,7 +3,8 @@ port of ``iif_tpu/detection/mask_head.py`` (``NormedConv2d``,
 ``FCNMaskHead`` with the conv and the normed predictor and
 ``logits_for_labels``, ``mask_targets``, ``mask_head_loss``,
 ``paste_masks``) under mmdet's names ``convs.{i}.conv``, ``upsample``,
-``conv_logits``.
+``conv_logits``, and HTC's mask head with its information-flow residual
+(``iif_tpu/detection/htc.py::HTCMaskHead``, mmdet's ``conv_res.conv``).
 
 The head takes the 14x14 RoI features in the trunk's dtype and computes in
 f32 (flax promotes to its f32 parameters). The normed predictor's
@@ -11,7 +12,7 @@ f32 (flax promotes to its f32 parameters). The normed predictor's
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,6 +97,46 @@ class FCNMaskHead(nn.Module):
                 feats, dim=1, keepdim=True) + EPS)
             return torch.einsum("rchw,rc->rhw", feats,
                                 sel * self.temperature)
+        sel = self.conv_logits.weight[:, :, 0, 0][labels]      # (R, C)
+        out = torch.einsum("rchw,rc->rhw", feats, sel)
+        return out + self.conv_logits.bias[labels][:, None, None]
+
+
+class HTCMaskHead(FCNMaskHead):
+    """HTC's FCN mask head (``htc_mask_head.py``): the trunk (the 3x3
+    convs) takes the previous stage's trunk output through ``conv_res``, a
+    1x1 conv and a ReLU, added to its input. ``with_conv_res=False`` builds
+    no ``conv_res``, as mmdet's HTC builds its first stage (the JAX
+    package creates one on every stage and never calls stage 0's). Only
+    the conv predictor, as JAX's ``logits_for_labels_from_trunk`` reads a
+    1x1 conv kernel."""
+
+    def __init__(self, num_classes: int, with_conv_res: bool = True,
+                 conv_out_channels: int = 256, predictor: str = "conv"):
+        if predictor != "conv":
+            raise NotImplementedError(
+                f"HTC mask predictor {predictor!r} is not ported")
+        super().__init__(num_classes, conv_out_channels=conv_out_channels)
+        self.conv_res = (ConvModule(conv_out_channels, conv_out_channels, 1)
+                         if with_conv_res else None)
+
+    def trunk(self, x: torch.Tensor,
+              res_feat: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(R, 14, 14, C_in) RoI features and the previous stage's trunk
+        output (R, C, 14, 14) or None -> this trunk's (R, C, 14, 14) NCHW,
+        in f32 as the cascade's mask heads compute."""
+        x = x.permute(0, 3, 1, 2).float()
+        if res_feat is not None:
+            x = x + F.relu(self.conv_res.conv(res_feat))
+        for m in self.convs:
+            x = F.relu(m.conv(x))
+        return x
+
+    def logits_for_labels_from_trunk(self, trunk: torch.Tensor,
+                                     labels: torch.Tensor) -> torch.Tensor:
+        """Each RoI's own class channel of the logits on a trunk output,
+        (R, 28, 28)."""
+        feats = F.relu(self.upsample(trunk))
         sel = self.conv_logits.weight[:, :, 0, 0][labels]      # (R, C)
         out = torch.einsum("rchw,rc->rhw", feats, sel)
         return out + self.conv_logits.bias[labels][:, None, None]

@@ -2,12 +2,13 @@
 (``DetectionTrainer`` with ``init_state``, one train step,
 ``train_one_epoch``, the FASA val pass ``fasa_val_epoch`` with
 ``_fasa_accumulate_batch``, and ``frozen_backbone_mask``) for the
-MaskRCNN, Cascade Mask R-CNN and Faster R-CNN C4 losses, with
+MaskRCNN, Cascade Mask R-CNN, HTC and Faster R-CNN C4 losses, with
 ``grad_accum=1`` and no EMA, Seesaw or Dynamic R-CNN state. The step
 dispatches on the model as the JAX trainer does (``engine/
-detection.py:307-327``): ``maskrcnn_loss`` for ``MaskRCNN``,
-``cascade_loss`` for ``CascadeMaskRCNN`` (its stages share the one loss),
-``c4_loss`` for ``C4FasterRCNN``; other families raise.
+detection.py:307-335``): ``maskrcnn_loss`` for ``MaskRCNN``, ``htc_loss``
+for ``HTC`` and ``cascade_loss`` for ``CascadeMaskRCNN`` (their stages
+share the one loss), ``c4_loss`` for ``C4FasterRCNN``; other families
+raise. FASA with HTC raises, as JAX's ``htc_loss`` takes no FASA state.
 
 FASA's state (``detection/fasa.py``; one ``FasaState`` a stage for the
 cascade) rides in the train state; the aug loss is on from epoch 1
@@ -62,6 +63,7 @@ from iif_torch.detection.fasa import (
     fasa_dynamic_sampling,
     init_fasa_state,
 )
+from iif_torch.detection.htc import HTC, htc_loss
 from iif_torch.detection.init import fresh_init_
 from iif_torch.detection.roi_extractor import SingleRoIExtractor
 from iif_torch.detection.rpn import rpn_proposals
@@ -118,8 +120,8 @@ def init_fasa_states(model, instance_counts: np.ndarray,
 
 
 class DetectionTrainer:
-    """Trains ``model`` (a ``MaskRCNN``, a ``CascadeMaskRCNN`` or a
-    ``C4FasterRCNN``, on ``device``, default the card) with ``loss_cls``
+    """Trains ``model`` (a ``MaskRCNN``, a ``CascadeMaskRCNN``, an ``HTC``
+    or a ``C4FasterRCNN``, on ``device``, default the card) with ``loss_cls``
     under ``lr_schedule``; ``optimizer_cfg`` is the config's ``optimizer``
     dict (type, momentum, weight_decay), ``grad_clip`` the global-norm
     bound of ``optimizer_config.grad_clip``, ``fasa_cfg`` the config's
@@ -133,6 +135,10 @@ class DetectionTrainer:
                  seed: int = 0, device: Union[str, torch.device] = "cuda",
                  grad_clip: Optional[float] = None,
                  fasa_cfg: Optional[Dict[str, Any]] = None):
+        if fasa_cfg is not None and isinstance(model, HTC):
+            raise NotImplementedError(
+                "FASA with HTC is not ported (JAX's htc_loss takes no FASA "
+                "state)")
         self.device = resolve_device(device)
         self.loss_fn = _loss_fn(model)
         self.model = model.to(self.device).train()
@@ -355,6 +361,8 @@ def _loss_fn(model) -> Callable:
     """The loss of the model's family, as the JAX trainer dispatches."""
     if isinstance(model, C4FasterRCNN):
         return c4_loss
+    if isinstance(model, HTC):          # before its cascade base
+        return htc_loss
     if isinstance(model, CascadeMaskRCNN):
         return cascade_loss
     if isinstance(model, MaskRCNN):
@@ -366,8 +374,8 @@ def _loss_fn(model) -> Callable:
 def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
                         device: Union[str, torch.device] = "cuda"
                         ) -> DetectionTrainer:
-    """A trainer for a MaskRCNN, Cascade Mask R-CNN or Faster R-CNN C4
-    config as ``iif_tpu/cli/train_det.py`` builds one (model,
+    """A trainer for a MaskRCNN, Cascade Mask R-CNN, HTC or Faster R-CNN
+    C4 config as ``iif_tpu/cli/train_det.py`` builds one (model,
     ``train_cfg``, with masks the pipeline's ``mask_stride``, the
     step-decay schedule with warm-up, SGD with
     ``optimizer_config.grad_clip``'s ``max_norm``, ``fasa_cfg``), from

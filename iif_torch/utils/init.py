@@ -39,11 +39,17 @@ class ParamInit:
         self._set(t, (2.0 * u - 1.0) * limit)
 
     def truncated_normal(self, t: torch.Tensor, std: float) -> None:
-        s = std / _TRUNC_STD
-        v = torch.empty(t.shape)
-        nn.init.trunc_normal_(v, 0.0, s, -2.0 * s, 2.0 * s,
-                              generator=self.generator)
-        self._set(t, v)
+        """A unit normal truncated to [-2, 2] times ``std / _TRUNC_STD``
+        (flax's ``truncated_normal``): the draws outside redrawn until
+        none is left (4.6% a round), a tenth of ``nn.init.trunc_normal_``'s
+        time (its inverse error function) on a (12544, 1024) FC."""
+        v = torch.randn(t.numel(), generator=self.generator)
+        out = torch.nonzero(v.abs() > 2.0)[:, 0]
+        while out.numel():
+            redraw = torch.randn(out.numel(), generator=self.generator)
+            v[out] = redraw
+            out = out[redraw.abs() > 2.0]
+        self._set(t, v.reshape(t.shape) * (std / _TRUNC_STD))
 
     def bias(self, layer: nn.Module, value: float = 0.0) -> None:
         if layer.bias is not None:

@@ -238,7 +238,8 @@ def test_trainer_from_c4_config_dispatches_to_c4_loss():
 def test_det_cross_entropy_matches_jax(reduction, weighted):
     """``DetCrossEntropyLoss.__call__`` (softmax CE in f32 from bf16
     logits too, label weights, ``avg_factor``, ``loss_weight``) within
-    rtol 1e-6 of JAX's; ``use_sigmoid`` raises."""
+    rtol 1e-6 of JAX's (``use_sigmoid``: ``tests/test_torch_activations.
+    py``)."""
     from iif_tpu.detection.losses import DetCrossEntropyLoss as JaxCE
 
     rng = np.random.RandomState(3 + weighted)
@@ -259,8 +260,6 @@ def test_det_cross_entropy_matches_jax(reduction, weighted):
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        DetCrossEntropyLoss(80, use_sigmoid=True)
 
 
 def test_res_layer_trains_only_with_norm_eval():
