@@ -2502,7 +2502,9 @@ def overfit_phase(torch, np, tmp):
             "train_s": train_s, "test_s": test_s,
             "ap": {m: metrics[m] for m in ("bbox", "segm")},
             "hook_ap": hooks[0], "launches": launches,
-            "captured": captured}
+            "captured": captured, "config": cfg, "work": work,
+            "images": len(json.loads(open(data["ann_file"]).read())
+                          ["images"])}
 
 
 # --------------------------------------------------------- classification
@@ -4148,6 +4150,397 @@ def sigmoid_cascade_phase(torch, np):
             "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+SEESAW_CONFIG = ("configs/seesaw_loss/"
+                 "mask_rcnn_r50_fpn_seesaw_mstrain_2x_lvis_v1.py")
+RSB_CONFIG = "configs/fasa/fasa_iof_base10_r50_rfs_cos_norm_1x_rsb.py"
+SEESAW_REQUESTS = 20               # b1 requests; b2: half as many batches
+SEESAW_TIMED = 5                   # timed b4 steps after TRAIN_WARMUP
+SEESAW_REL_TOL = 1e-5              # Seesaw on the card against the CPU
+RSB_IMAGES = 12                    # seeded PNGs of the RSB CLI phase
+RSB_STEPS = 3                      # --max-steps: b4 steps (2 micro-batches)
+RSB_TIMED = 3                      # timed b4 steps after the CLI's
+RSB_ACCUM = 2                      # data.grad_accum
+RSB_PROBE_LR = 1e-3                # the decay probe step's learning rate
+TTA_IMAGES = 8                     # seeded PNGs of the TTA phase
+
+
+def seesaw_vs_cpu(torch, loss, call):
+    """Seesaw of one step's own logits (its counts, labels, weights and
+    ``avg_factor``) on the card against the same call on the CPU: the
+    loss's and the logits gradient's largest error over their largest
+    magnitude."""
+    cum, score, labels, weight, avg = call
+
+    def run(dev):
+        s = score.detach().to(dev).requires_grad_(True)
+        value = loss.with_cum(cum.to(dev))(
+            s, labels.to(dev), weight=weight.to(dev),
+            avg_factor=avg.to(dev))
+        value.backward()
+        return value.detach().cpu(), s.grad.cpu()
+
+    (lc, gc), (lp, gp) = run("cuda"), run("cpu")
+    return {"loss": float(lc),
+            "loss_rel_err": abs(float(lc - lp)) / abs(float(lp)),
+            "grad_rel_err": float((gc - gp).abs().max() / gp.abs().max())}
+
+
+def seesaw_phase(torch, np):
+    """The Seesaw config as it stands (MaskRCNN R50-FPN, bf16 trunk, the
+    normed C+2 classifier at temperature 20, ``SeesawLoss`` p 0.8 q 2,
+    1203 classes, ``score_thr=1e-4``, 300 detections): ``init_detector``
+    with ``fresh_init_`` (seeded) serving SEESAW_REQUESTS b1 requests and
+    half as many b2 batches (K1 one 7x7 and one 14x14 a forward); then
+    ``trainer_from_config`` at b4 on the MaskRCNN cell's batch,
+    TRAIN_WARMUP + SEESAW_TIMED steps (K1 and K2 once a size a step), each
+    step's ``seesaw_cum`` equal to the host's bincount of the labels of
+    weight > 0 it counted, and the loss of the first step's own logits on
+    the card against the CPU (within SEESAW_REL_TOL)."""
+    from iif_torch.detection.inference import init_detector
+    from iif_torch.detection.init import fresh_init_
+    from iif_torch.detection.losses_extra import SeesawLoss
+
+    cfg, _ = lvis_cfg(np, SEESAW_CONFIG, "test")
+    det = init_detector(cfg, device="cuda")
+    fresh_init_(det.model, torch.Generator().manual_seed(0))
+    fc = det.model.roi_head.bbox_head.fc_cls
+    check(isinstance(det.loss_cls, SeesawLoss)
+          and type(fc).__name__ == "NormedLinear"
+          and tuple(fc.weight.shape) == (1024, NUM_CLASSES + 2)
+          and fc.temperature == 20.0, "Seesaw with a normed C+2 classifier")
+    check((det.test_cfg.score_thr, det.test_cfg.max_per_img) == (1e-4, 300),
+          "test_cfg 1e-4, 300")
+    _, images = serving_images(np)
+    ms, by_size, paths, results, syncs = served_launches(
+        torch, det, images, SEESAW_REQUESTS)
+    for path, n in (("b1", SEESAW_REQUESTS), ("b2", SEESAW_REQUESTS // 2)):
+        check(by_size[path]["K1"] == {7: n, 14: n},
+              f"K1 one 7x7 and one 14x14 a forward on {path}: "
+              f"{by_size[path]['K1']}")
+        check(not any(by_size[path][k] for k in ("K2", "K3", "K4")),
+              f"no K2, K3 or K4 on the Seesaw {path} path")
+        check_vec8(f"K1 on the Seesaw {path} path", paths[path], 2 * n)
+    for res in results:
+        check(res["boxes"].shape == (300, 4) and res["valid"].any()
+              and res["labels"][res["valid"]].max() < NUM_CLASSES,
+              "300 detections of the 1203 classes, some valid")
+        for k, v in res.items():
+            check(np.isfinite(v.astype(np.float64)).all(), f"finite {k}")
+    serving = {"b1_ms_per_image": spread(ms["b1"]),
+               "b2_ms_per_image": spread(ms["b2"]),
+               "nms_host_syncs_per_image": syncs,
+               "launches_by_size": add_launches(by_size["b1"],
+                                                by_size["b2"])}
+    del det
+
+    trainer, _, _ = lvis_trainer(torch, np, SEESAW_CONFIG)
+    check(isinstance(trainer.loss_cls, SeesawLoss)
+          and trainer.model.roi_head.bbox_head.fc_cls.weight.shape[1]
+          == NUM_CLASSES + 2, "the Seesaw trainer's C+2 classifier")
+    state = trainer.init_state()
+    check(not state.seesaw_cum.any(), "seesaw_cum starts at 0")
+    batch = synthetic_train_batch(np, torch, "cuda")
+    counted, calls = [], []
+    update, loss_call = SeesawLoss.update_cum, SeesawLoss.__call__
+
+    def record_update(self, labels, weight=None):
+        counted.append((self.cum_samples.clone(), labels.clone(),
+                        weight.clone()))
+        return update(self, labels, weight)
+
+    def record_call(self, score, labels, weight=None, avg_factor=None,
+                    **kw):
+        if not calls:
+            calls.append((self.cum_samples.clone(), score.detach().clone(),
+                          labels.clone(), weight.clone(),
+                          torch.as_tensor(avg_factor).detach().clone()))
+        return loss_call(self, score, labels, weight=weight,
+                         avg_factor=avg_factor, **kw)
+
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    torch.cuda.reset_peak_memory_stats()
+    n = TRAIN_WARMUP + SEESAW_TIMED
+    with patched((SeesawLoss, "update_cum", record_update),
+                 (SeesawLoss, "__call__", record_call)):
+        state, times, rows = timed_steps(
+            torch, trainer, state, batch, ((0, n, TRAIN_WARMUP),),
+            label="Seesaw")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_size = roi_launches_by_size()
+    for k in ("K1", "K2"):
+        check(by_size[k] == {7: n, 14: n}, f"{k} once a size a step: "
+              f"{by_size[k]}")
+    check(not by_size["K3"] and not by_size["K4"], "no K3 or K4")
+    check(len(counted) == n, f"one count a step: {len(counted)}")
+    cum = np.zeros(NUM_CLASSES + 1)
+    for i, (before, labels, weight) in enumerate(counted):
+        check(np.array_equal(before.cpu().numpy(), cum),
+              f"step {i} counts from the last step's seesaw_cum")
+        lab, w = labels.cpu().numpy(), weight.cpu().numpy()
+        cum = cum + np.bincount(lab[w > 0], minlength=NUM_CLASSES + 1)
+    check(np.array_equal(state.seesaw_cum.cpu().numpy(), cum),
+          "seesaw_cum equals the host's bincount of the valid labels")
+    check(all(0.0 <= r["acc"] <= 100.0 for r in rows), "accuracy logged")
+    vs_cpu = seesaw_vs_cpu(torch, trainer.loss_cls, calls[0])
+    log("Seesaw card vs CPU", json.dumps(vs_cpu))
+    check(vs_cpu["loss_rel_err"] <= SEESAW_REL_TOL
+          and vs_cpu["grad_rel_err"] <= SEESAW_REL_TOL,
+          f"Seesaw on the card agrees with the CPU's: {vs_cpu}")
+    counts = state.seesaw_cum.cpu().numpy()
+    return {"serving": serving, "steps": n, "step_ms": spread(times[0]),
+            "img_per_s": TRAIN_BATCH * 1e3 / statistics.median(times[0]),
+            "first_loss": rows[0]["loss"], "last_loss": rows[-1]["loss"],
+            "seesaw_cum_total": float(counts.sum()),
+            "seesaw_cum_background": float(counts[-1]),
+            "seesaw_vs_cpu": vs_cpu, "seesaw_tolerance": SEESAW_REL_TOL,
+            "launches_by_size": by_size, "peak_allocated_gib": peak,
+            "serving_launches_by_size": serving["launches_by_size"]}
+
+
+def decay_fraction(torch, np, opt, p, old, lr):
+    """The share of AdamW's decoupled decay a step of rate ``lr`` gave
+    ``p`` (from ``old``): the update less the Adam direction rebuilt from
+    the optimizer's moments, fitted by least squares to ``wd * old``; 1
+    decayed, 0 not."""
+    group = next(g for g in opt.param_groups
+                 if any(q is p for q in g["params"]))
+    st = opt.state[p]
+    n = np.float32(st["count"])
+    c1 = float(np.float32(1) - np.float32(group["b1"]) ** n)
+    c2 = float(np.float32(1) - np.float32(group["b2"]) ** n)
+    adam = (st["mu"] / c1) / (torch.sqrt(st["nu"] / c2) + group["eps"])
+    rest = ((old - p.detach()) / lr - adam).double()
+    target = (0.05 * old).double()
+    return float((rest * target).sum() / (target * target).sum())
+
+
+def rsb_phase(torch, np, tmp):
+    """``python -m iif_torch.cli.train_det`` in the process on the RSB
+    config as it stands (FASA + IOF MaskRCNN R50, normed heads, AdamW lr
+    2e-4 wd 0.05 with ``norm_decay_mult=0``, the dynamic runner) from a
+    seeded mmcls-layout backbone ``.pth`` the phase writes (``backbone.*``
+    and ``head.fc.*``), over RSB_IMAGES seeded LVIS-style PNGs (train and
+    val), ``--cfg-options data.grad_accum=2``, ``--max-steps`` RSB_STEPS:
+    K1 and K2 once a size a micro-batch, the val pass's K1; the frozen
+    stem as the file wrote it; the norm layers in the group without
+    decay; RSB_TIMED timed b4 steps on the MaskRCNN cell's batch; then a
+    probe step at lr RSB_PROBE_LR: a conv weight took the decay and a BN
+    weight none (``decay_fraction``)."""
+    import iif_torch.engine.detection as engine_mod
+    from iif_torch.cli import train_det
+    from iif_torch.detection.detector import _DEPTH_LAYERS, random_init_
+    from iif_torch.models.resnet import ResNet
+    from iif_torch.tools.synthetic_lvis import COCO_SIZES, write_synthetic_lvis
+
+    sizes = [COCO_SIZES[i % 3] for i in range(RSB_IMAGES)]
+    data = write_synthetic_lvis(str(tmp / "rsb"), sizes, NUM_CLASSES,
+                                seed=15)
+    gen = torch.Generator().manual_seed(3)
+    backbone = random_init_(ResNet(_DEPTH_LAYERS[50]), gen)
+    sd = {f"backbone.{k}": v for k, v in backbone.state_dict().items()}
+    sd["head.fc.weight"] = torch.randn(1000, 2048, generator=gen) * 0.01
+    sd["head.fc.bias"] = torch.zeros(1000)
+    pth = tmp / "resnet50_rsb_a1.pth"
+    torch.save({"meta": {"note": "seeded, mmcls layout"}, "state_dict": sd},
+               pth)
+    options = [f"data.{split}.{k}={data[k]}" for split in ("train", "val")
+               for k in ("ann_file", "img_prefix")] + [
+        f"model.pretrained_backbone={pth}", f"data.grad_accum={RSB_ACCUM}",
+        "runner.max_epochs=1", "log_config.tensorboard=False"]
+    val_launches = []
+    val_epoch = engine_mod.DetectionTrainer.fasa_val_epoch
+
+    def recorded_val(self, state, loader, print_fn=print):
+        before = roi_launches_by_size()
+        state = val_epoch(self, state, loader, print_fn)
+        torch.cuda.synchronize()
+        val_launches.append(add_launches(roi_launches_by_size(), before, -1))
+        return state
+
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    t0 = time.perf_counter()
+    with patched((engine_mod.DetectionTrainer, "fasa_val_epoch",
+                  recorded_val)):
+        trainer, state = train_det.main([
+            str(REPO / RSB_CONFIG), "--work-dir", str(tmp / "rsb_work"),
+            "--max-steps", str(RSB_STEPS), "--cfg-options", *options])
+    run_s = time.perf_counter() - t0
+    total = roi_launches_by_size()
+    check(len(val_launches) == 1, "one FASA val pass")
+    on_val = {k: {o: c for o, c in v.items() if c}
+              for k, v in val_launches[0].items()}
+    on_train = {k: {o: c for o, c in v.items() if c} for k, v in
+                add_launches(total, val_launches[0], -1).items()}
+    micro = RSB_ACCUM * RSB_STEPS
+    check(trainer.grad_accum == RSB_ACCUM and state.step == RSB_STEPS,
+          f"{RSB_STEPS} steps of {RSB_ACCUM} micro-batches: {state.step}")
+    check(on_train == {"K1": {7: micro, 14: micro},
+                       "K2": {7: micro, 14: micro}, "K3": {}, "K4": {}},
+          f"K1 and K2 once a size a micro-batch: {on_train}")
+    check(on_val["K1"] == {7: RSB_STEPS} and not on_val["K2"],
+          f"the val pass: one 7x7 K1 a batch: {on_val}")
+    model = trainer.model
+    check(torch.equal(model.backbone.conv1.weight.detach().cpu(),
+                      sd["backbone.conv1.weight"]),
+          "the frozen stem as the mmcls file wrote it")
+    groups = state.optimizer.param_groups
+    check([(g["weight_decay"], g["decay_offset"]) for g in groups]
+          == [(0.05, 0.0), (0.0, 0.0), (0.05, 1.0)],
+          "AdamW groups: decayed, norm layers undecayed, normed kernels")
+    no_decay = {id(p) for p in groups[1]["params"]}
+    conv = model.backbone.layer4[0].conv2.weight
+    bn = model.backbone.layer4[0].bn2.weight
+    check(id(bn) in no_decay and id(conv) not in no_decay,
+          "a BN weight in the group without decay, a conv weight not")
+
+    batch = synthetic_train_batch(np, torch, "cuda")
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    torch.cuda.reset_peak_memory_stats()
+    n = 1 + RSB_TIMED
+    state, times, rows = timed_steps(torch, trainer, state, batch,
+                                     ((0, n, 1),), label="RSB")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_size = roi_launches_by_size()
+    check(by_size["K1"] == {7: RSB_ACCUM * n, 14: RSB_ACCUM * n}
+          and by_size["K2"] == {7: RSB_ACCUM * n, 14: RSB_ACCUM * n},
+          f"K1 and K2 once a size a micro-batch: {by_size}")
+    for g in groups:
+        g["lr"] = RSB_PROBE_LR
+    old_conv, old_bn = conv.detach().clone(), bn.detach().clone()
+    state, _ = trainer.train_step(state, batch)
+    fractions = {"conv": decay_fraction(torch, np, state.optimizer, conv,
+                                        old_conv, RSB_PROBE_LR),
+                 "bn": decay_fraction(torch, np, state.optimizer, bn, old_bn,
+                                      RSB_PROBE_LR)}
+    log("RSB decay probe", json.dumps(fractions))
+    check(abs(fractions["conv"] - 1.0) < 0.05 and abs(fractions["bn"])
+          < 0.05, f"a conv weight decayed, a BN weight not: {fractions}")
+    return {"cli_run_s": run_s, "cli_steps": RSB_STEPS,
+            "micro_batches": micro, "step_ms": spread(times[0]),
+            "img_per_s": TRAIN_BATCH * 1e3 / statistics.median(times[0]),
+            "last_loss": rows[-1]["loss"], "decay_fraction": fractions,
+            "launches_train": on_train, "launches_val": on_val,
+            "launches_by_size": by_size, "peak_allocated_gib": peak}
+
+
+def tta_run(torch, test_det, argv, images, per_image):
+    """``test_det.main(argv)`` with K1-K4 counted from 0: its metrics, its
+    seconds an image and its launches; no K2-K4, and K1's checked against
+    ``per_image`` (output side -> launches an image) where given."""
+    torch.cuda.synchronize()
+    reset_roi_launches()
+    t0 = time.perf_counter()
+    metrics = test_det.main(argv)
+    torch.cuda.synchronize()
+    s = (time.perf_counter() - t0) / images
+    by_size = roi_launches_by_size()
+    check(not any(by_size[k] for k in ("K2", "K3", "K4")),
+          f"{Path(argv[0]).name}: no K2-K4: {by_size}")
+    if per_image is not None:
+        want = {o: c * images for o, c in per_image.items()}
+        check(by_size["K1"] == want,
+              f"{Path(argv[0]).name} --tta: K1 {want}: {by_size}")
+    return metrics, s, by_size
+
+
+def tta_phase(torch, np, tmp, files_work, overfit):
+    """``python -m iif_torch.cli.test_det --tta`` in the process (two
+    views: the config's last scale, with and without a flip), each beside
+    its single-view run: the headline config as it stands (1203 classes,
+    bf16, 800x1344) with the files phase's checkpoint, the overfit
+    phase's config with its trained checkpoint, and the FASA cascade
+    config with a seeded checkpoint; TTA_IMAGES seeded LVIS-style PNGs
+    (the overfit set for its config). s/image and K1's launches an image
+    (MaskRCNN one 7x7 and one 14x14, the cascade three and one, on the
+    views as one batch); AP is reported, not gated, beside the single
+    view's; the records valid. K1 against its plain version on the
+    merged RoIs of the headline config's first image, re-scored on both
+    views (f32 and bf16)."""
+    from iif_torch.cli import test_det
+    from iif_torch.config import Config, parse_cfg_options
+    from iif_torch.detection.inference import init_detector
+    from iif_torch.detection.init import fresh_init_
+    from iif_torch.detection.roi_extractor import SingleRoIExtractor
+    from iif_torch.tools.synthetic_lvis import COCO_SIZES, write_synthetic_lvis
+
+    sizes = [COCO_SIZES[i % 3] for i in range(TTA_IMAGES)]
+    data = write_synthetic_lvis(str(tmp / "tta"), sizes, NUM_CLASSES,
+                                seed=16)
+    options = [f"data.test.ann_file={data['ann_file']}",
+               f"data.test.img_prefix={data['img_prefix']}"]
+    headline = str(REPO / "configs/iif/iif_r50_1x.py")
+    cascade = str(REPO / CASCADE_CONFIG)
+    cfg = Config.fromfile(cascade)
+    cfg.merge_from_options(parse_cfg_options(options))
+    det = init_detector(cfg, device="cuda")
+    fresh_init_(det.model, torch.Generator().manual_seed(0))
+    seeded = tmp / "cascade_seeded.pth"
+    torch.save({"state_dict": det.model.state_dict()}, seeded)
+    del det
+    seen = []
+    extract = SingleRoIExtractor.__call__
+
+    def first_image(self, feats, rois):
+        out = extract(self, feats, rois)
+        if len(seen) < 2:
+            seen.append((self.output_size[0],
+                         [f.detach().float() for f in feats[:4]],
+                         rois.detach().clone()))
+        return out
+
+    runs = {}
+    plan = (("maskrcnn", headline, files_work, options, TTA_IMAGES,
+             {7: 1, 14: 1}),
+            ("overfit", overfit["config"], overfit["work"], [],
+             overfit["images"], {7: 1, 14: 1}),
+            ("cascade", cascade, str(seeded), options, TTA_IMAGES,
+             {7: 3, 14: 1}))
+    for name, config, ckpt, opts, images, tta_k1 in plan:
+        argv = [config, str(ckpt), "--eval", "bbox", "segm"] + (
+            ["--cfg-options", *opts] if opts else [])
+        single, single_s, _ = tta_run(torch, test_det, argv, images, None)
+        out_json = tmp / f"tta_{name}.json"
+        with patched((SingleRoIExtractor, "__call__", first_image)) if \
+                name == "maskrcnn" else contextlib.nullcontext():
+            tta, tta_s, by_size = tta_run(
+                torch, test_det, argv + ["--tta", "--out", str(out_json)],
+                images, tta_k1)
+        records = json.loads(out_json.read_text())
+        check(records and {"image_id", "bbox", "score", "segmentation"}
+              <= set(records[0]) and all(np.isfinite(r["bbox"]).all()
+                                         for r in records),
+              f"{name} --tta records valid")
+        for m in ("bbox", "segm"):
+            check(0.0 <= tta[m]["AP"] <= 1.0, f"{name} --tta {m} AP")
+        runs[name] = {
+            "tta_s_per_image": tta_s, "single_s_per_image": single_s,
+            "k1_launches_per_image": {o: c / images for o, c in
+                                      by_size["K1"].items()},
+            "records": len(records),
+            "ap": {m: {"tta": tta[m]["AP"], "single": single[m]["AP"]}
+                   for m in ("bbox", "segm")}}
+        log(f"TTA {name}", json.dumps(runs[name]))
+    check([o for o, *_ in seen] == [7, 14], "the first TTA image's calls")
+    k1 = {}
+    for o, feats32, rois in seen:
+        check(int(rois[:, 0].max()) == 1, "both views' RoIs")
+        for dt in (torch.float32, torch.bfloat16):
+            row = k1_row(torch, feats32, rois, o, dt)
+            check(row["path"] == "vec8", "K1 takes vec8 on the TTA RoIs")
+            k1[(o, row["dtype"])] = row
+    launches = {
+        "tta_maskrcnn": {o: int(c * TTA_IMAGES) for o, c in
+                         runs["maskrcnn"]["k1_launches_per_image"].items()},
+        "tta_overfit": {o: int(c * overfit["images"]) for o, c in
+                        runs["overfit"]["k1_launches_per_image"].items()},
+        "tta_cascade": {o: int(c * TTA_IMAGES) for o, c in
+                        runs["cascade"]["k1_launches_per_image"].items()}}
+    return {"runs": runs, "k1": k1, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4253,13 +4646,18 @@ def main() -> int:
         log("training from files", json.dumps(
             {k: v for k, v in files.items() if k != "work_dir"}),
             "card", card)
-        evaluation = evaluation_phase(torch, np, files.pop("work_dir"),
-                                      Path(tmp))
+        files_work = files.pop("work_dir")
+        evaluation = evaluation_phase(torch, np, files_work, Path(tmp))
         eval_feats, eval_rois7, eval_rois14 = evaluation.pop("captured")
         log("evaluation", json.dumps(evaluation), "card", card)
         overfit = overfit_phase(torch, np, Path(tmp))
         overfit_captured = overfit.pop("captured")
-        log("overfit", json.dumps(overfit), "card", card)
+        log("overfit", json.dumps({k: v for k, v in overfit.items()
+                                   if k not in ("config", "work")}),
+            "card", card)
+        tta = tta_phase(torch, np, Path(tmp), files_work, overfit)
+        tta_k1 = tta.pop("k1")
+        log("TTA", json.dumps(tta), "card", card)
         cls_cifar = classification_cifar_phase(torch, np, Path(tmp))
         log("classification CIFAR-100-LT", json.dumps(cls_cifar), "card",
             card)
@@ -4299,6 +4697,11 @@ def main() -> int:
         "card", card)
     sig_cascade = sigmoid_cascade_phase(torch, np)
     log("sigmoid cascade R50", json.dumps(sig_cascade), "card", card)
+    seesaw = seesaw_phase(torch, np)
+    log("Seesaw", json.dumps(seesaw), "card", card)
+    with tempfile.TemporaryDirectory() as tmp:
+        rsb = rsb_phase(torch, np, Path(tmp))
+    log("RSB + grad_accum", json.dumps(rsb), "card", card)
     eval_k1 = {}
     for o, rois in ((7, eval_rois7), (14, eval_rois14)):
         for dt in (torch.float32, torch.bfloat16):
@@ -4514,6 +4917,17 @@ def main() -> int:
                 {"x101_training": x101_train["launches_by_size"][key][o]},
                 "on the 800x1344 canvas's levels, an X101 training step's "
                 "own maps and RoIs"))
+    # K1 on the merged TTA RoIs of the headline config's first image,
+    # re-scored on both views (the second flipped), with the TTA paths'
+    # launches
+    for o in (7, 14):
+        kernels.append(path_row(
+            tta_k1, o, "K1", "tta",
+            {p: tta["launches"][p].get(o, 0) for p in (
+                "tta_maskrcnn", "tta_overfit", "tta_cascade")},
+            "on the 800x1344 canvas's levels of two views (a flip), the "
+            "merged " + ("proposals" if o == 7 else "detections") +
+            " of a --tta image"))
     # the FASA and activations families' paths: each row gets its own
     # output size's count
     family_paths = {"cascade_serving": cascade["launches_by_size"],
@@ -4529,7 +4943,18 @@ def main() -> int:
                     "x101_serving": x101["launches_by_size"],
                     "x101_training": x101_train["launches_by_size"],
                     "sigmoid_cascade_training":
-                        sig_cascade["launches_by_size"]}
+                        sig_cascade["launches_by_size"],
+                    "seesaw_serving": seesaw["serving_launches_by_size"],
+                    "seesaw_training": seesaw["launches_by_size"],
+                    "rsb_train_cli": rsb["launches_train"],
+                    "rsb_val": rsb["launches_val"],
+                    "rsb_training": rsb["launches_by_size"],
+                    "tta_maskrcnn": {"K1": tta["launches"]["tta_maskrcnn"],
+                                     "K2": {}, "K3": {}, "K4": {}},
+                    "tta_overfit": {"K1": tta["launches"]["tta_overfit"],
+                                    "K2": {}, "K3": {}, "K4": {}},
+                    "tta_cascade": {"K1": tta["launches"]["tta_cascade"],
+                                    "K2": {}, "K3": {}, "K4": {}}}
     for row in kernels:
         side = int(re.search(r"_(\d+)x\1(_|$)", row["name"]).group(1))
         for path, counts in family_paths.items():

@@ -3,7 +3,7 @@
 
     python -m iif_torch.cli.test_det configs/iif/iif_r50_1x.py \\
         WORK_DIR_OR_CKPT.pth [--eval bbox segm] [--out results.json] \\
-        [--format-only] [--max-images N] [--cfg-options k=v ...] \\
+        [--format-only] [--max-images N] [--tta] [--cfg-options k=v ...] \\
         [--device cuda]
 
 It loads an mmdet ``.pth`` checkpoint (``iif_torch/utils/checkpoint.py``;
@@ -16,9 +16,16 @@ each metric: bbox / segm AP under the COCO or LVIS protocol
 (``detection/evaluation.py``), ``mAP`` (VOC) and ``proposal_fast``
 (``detection/voc_eval.py``).
 
+``--tta`` runs the aug-test (``detection/tta.py``) one image at a time
+over the views ``cfg.tta.scales`` (else the config's last train scale),
+each with and without a flip unless ``cfg.tta.flip`` is False
+(``run_inference_tta``). With ``--exported`` or ``--eval PQ`` it exits as
+JAX's does; HTC with masks and C4 raise ``NotImplementedError``, as JAX
+fails on them.
+
 Not ported, refused with ``NotImplementedError`` naming the flag:
-``--tta``, ``--exported``, ``--fuse-conv-bn``, ``--eval PQ`` and
-``--show-dir``. Evaluation runs in one process (no multi-host gather).
+``--exported``, ``--fuse-conv-bn``, ``--eval PQ`` and ``--show-dir``.
+Evaluation runs in one process (no multi-host gather).
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from iif_torch.detection.inference import (
     rescale_boxes,
 )
 from iif_torch.detection.mask_head import paste_masks
+from iif_torch.detection.tta import aug_test, multi_scale_flip_views
 from iif_torch.device import resolve_device
 from iif_torch.native.rle_native import rle_encode_native
 
@@ -63,7 +71,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--show-dir", default=None, help="not ported")
     p.add_argument("--show-score-thr", default=0.3, type=float)
     p.add_argument("--cfg-options", nargs="+", default=[])
-    p.add_argument("--tta", action="store_true", help="not ported")
+    p.add_argument("--tta", action="store_true",
+                   help="multi-scale + flip aug-test (merged proposals "
+                        "re-scored on every view)")
     p.add_argument("--exported", default=None, help="not ported")
     p.add_argument("--fuse-conv-bn", action="store_true",
                    help="not ported")
@@ -73,10 +83,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    """``NotImplementedError`` for the flags whose modules are not ported
-    (``tta.py``, ``export.py``, ``models/fuse.py``, ``panoptic.py``,
-    ``show_result``)."""
-    unported = {"--tta": args.tta, "--exported": bool(args.exported),
+    """``SystemExit`` for ``--tta`` with ``--exported`` or ``--eval PQ``,
+    with JAX's messages; ``NotImplementedError`` for the flags whose
+    modules are not ported (``export.py``, ``models/fuse.py``,
+    ``panoptic.py``, ``show_result``)."""
+    if args.tta and args.exported:
+        raise SystemExit("--tta and --exported are mutually exclusive "
+                         "(the artifact is a fixed single-view program)")
+    if args.tta and any(m.lower() == "pq" for m in args.eval):
+        raise SystemExit("--eval PQ is not supported with --tta (the "
+                         "panoptic fusion runs on the single-view path "
+                         "only); drop --tta for PQ")
+    unported = {"--exported": bool(args.exported),
                 "--fuse-conv-bn": args.fuse_conv_bn,
                 "--eval PQ": any(m.lower() == "pq" for m in args.eval),
                 "--show-dir": bool(args.show_dir)}
@@ -196,6 +214,62 @@ def run_inference(detector: Detector, loader, cat_ids, with_mask: bool,
     return results
 
 
+def tta_views(cfg: Config) -> List[Dict[str, Any]]:
+    """The aug-test's views (``cli/test_det.py:322-327``): each of
+    ``cfg.tta.scales``, else the config's last train scale, with and
+    without a flip (``cfg.tta.flip``, default True)."""
+    tta_cfg = cfg.get("tta", {})
+    scales = cfg.get("pipeline", {}).get("scales", [(1333, 800)])
+    return multi_scale_flip_views(
+        [tuple(s) for s in tta_cfg.get("scales", scales[-1:])],
+        flip=tta_cfg.get("flip", True))
+
+
+@torch.inference_mode()
+def run_inference_tta(detector: Detector, dataset: CocoStyleDataset,
+                      views: List[Dict[str, Any]], cat_ids, with_mask: bool,
+                      max_images: Optional[int] = None) -> List[dict]:
+    """COCO results records of the aug-test (``cli/test_det.py:177-230``),
+    one image at a time: its ``views`` on one canvas as a batch
+    (``DetectionPipeline.eval_view``), ``detection/tta.py::aug_test``,
+    the detections already in the original frame; masks pasted and
+    encoded for the valid detections."""
+    dev = detector.device
+    thr = detector.test_cfg.mask_thr_binary
+    results: List[dict] = []
+    for i in range(min(len(dataset), max_images or len(dataset))):
+        img = read_image(dataset.image_path(i))
+        samples = [detector.pipeline.eval_view(img, v["scale"], v["flip"],
+                                               dev) for v in views]
+        out = aug_test(
+            detector.model, torch.stack([s["image"] for s in samples]),
+            torch.tensor([s["scale_factor"] for s in samples],
+                         dtype=torch.float32, device=dev),
+            torch.tensor([bool(s["flip"]) for s in samples], device=dev),
+            torch.tensor(np.stack([s["img_shape"] for s in samples]),
+                         dtype=torch.float32, device=dev),
+            detector.loss_cls, detector.test_cfg)
+        valid = out["valid"].cpu().numpy()
+        masks_rle = None
+        if with_mask and "masks" in out:
+            per_img: List[Optional[Dict]] = [None] * valid.shape[0]
+            rows = np.flatnonzero(valid)
+            if rows.size:
+                idx = torch.from_numpy(rows).to(dev)
+                pasted = _pasted_masks(out["masks"][idx], out["boxes"][idx],
+                                       img.shape[:2], thr)
+                for r, rle in zip(rows, encode_masks(pasted)):
+                    per_img[r] = rle
+            masks_rle = [per_img]
+        results.extend(detections_to_coco_results(
+            np.asarray([dataset.img_infos[i]["id"]]),
+            out["boxes"].cpu().numpy()[None],
+            out["scores"].cpu().numpy()[None],
+            out["labels"].cpu().numpy()[None], valid[None], cat_ids,
+            masks=masks_rle))
+    return results
+
+
 def build_evaluator(dataset: CocoStyleDataset, cfg: Config,
                     native: bool = True) -> DetEvaluator:
     """The COCO / LVIS evaluator of ``dataset`` at the config's
@@ -303,11 +377,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Dict[str, Any]]:
                              if k != "oversample_thr"})
     detector = init_detector(cfg, resolve_checkpoint(args.checkpoint),
                              device=device, dataset=test_ds)
-    loader = _EvalLoader(test_ds, detector,
-                         cfg.data.get("samples_per_gpu", 4))
-    results = run_inference(detector, loader, test_ds.cat_ids,
-                            cfg.model.get("with_mask", True),
-                            max_images=args.max_images)
+    with_mask = cfg.model.get("with_mask", True)
+    if args.tta:
+        results = run_inference_tta(detector, test_ds, tta_views(cfg),
+                                    test_ds.cat_ids, with_mask,
+                                    max_images=args.max_images)
+    else:
+        loader = _EvalLoader(test_ds, detector,
+                             cfg.data.get("samples_per_gpu", 4))
+        results = run_inference(detector, loader, test_ds.cat_ids,
+                                with_mask, max_images=args.max_images)
     if args.out or args.format_only:
         out = args.out or "results.json"
         with open(out, "w") as f:

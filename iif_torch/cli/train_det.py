@@ -35,8 +35,10 @@ training: EMA and other custom hooks (the YOLOX mode switch among them),
 ``--tp``, ``--selectp``, ``pipeline.uint8=False``,
 ``pipeline.pack_masks=False``, and an evaluation the run would reach
 with the metric ``PQ``; the loss, the detector, the pipeline and the
-trainer refuse their own unported knobs (Seesaw, other families,
-extras, ...).
+trainer refuse their own unported knobs (Seesaw beside a family other
+than MaskRCNN, other families, ``paramwise_cfg`` keys beyond
+``norm_decay_mult=0``, extras, ...). ``data.grad_accum`` splits each
+batch of ``data.samples_per_gpu`` into that many micro-batches.
 """
 from __future__ import annotations
 

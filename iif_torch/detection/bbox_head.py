@@ -1,6 +1,7 @@
 """Shared2FC bbox head, its training targets and loss, and its inference
 decode: port of ``iif_tpu/detection/bbox_head.py`` (``Shared2FCBBoxHead``
-with the linear or the normed classifier and ``cls_only``,
+with the linear, the normed or the IIF-normed classifier, ``cls_channels``
+and ``cls_only``,
 ``BBoxTargets``, ``bbox_targets`` with the random sampler,
 ``bbox_head_loss`` with the L1 box loss, ``bbox_head_get_bboxes``) under
 mmdet's names ``shared_fcs.{0,1}``, ``fc_cls``, ``fc_reg``.
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from iif_torch.models.layers import NormedLinear
+from iif_torch.models.layers import IIFNormedLinear, NormedLinear
 from iif_torch.ops.assigner import max_iou_assign
 from iif_torch.ops.boxes import bbox2delta, delta2bbox
 from iif_torch.ops.nms import _take, multiclass_nms
@@ -30,11 +31,14 @@ BBOX_TARGET_STDS = (0.1, 0.1, 0.2, 0.2)
 
 
 class Shared2FCBBoxHead(nn.Module):
-    """``cls_predictor`` is ``"linear"`` or ``"normed"`` (the cosine
-    ``NormedLinear`` at ``cls_temperature``); ``reg_class_agnostic``
-    regresses one box a RoI instead of one a class. ``cls_init`` is the
-    initialiser of a linear ``fc_cls`` in fresh weights
-    (``detection/init.py::fresh_init_``): ``("normal", std)`` or
+    """``cls_predictor`` is ``"linear"``, ``"normed"`` (the cosine
+    ``NormedLinear`` at ``cls_temperature``) or ``"iif_normed"``
+    (``IIFNormedLinear`` with ``iif_weights``, C+1 of them);
+    ``cls_channels`` is the classifier's width, 0 for C+1 (Seesaw's head
+    takes C+2; the IIF-normed classifier has C+1 whatever it says, as in
+    JAX); ``reg_class_agnostic`` regresses one box a RoI instead of one a
+    class. ``cls_init`` is the initialiser of a linear ``fc_cls`` in fresh
+    weights (``detection/init.py::fresh_init_``): ``("normal", std)`` or
     ``("constant", value)``, with an optional bias value third, as the
     JAX head takes it."""
 
@@ -43,9 +47,10 @@ class Shared2FCBBoxHead(nn.Module):
                  cls_init: tuple = ("normal", 0.01),
                  cls_predictor: str = "linear",
                  cls_temperature: float = 8.0,
-                 reg_class_agnostic: bool = False):
+                 reg_class_agnostic: bool = False,
+                 cls_channels: int = 0, iif_weights=()):
         super().__init__()
-        if cls_predictor not in ("linear", "normed"):
+        if cls_predictor not in ("linear", "normed", "iif_normed"):
             raise NotImplementedError(
                 f"cls_predictor {cls_predictor!r} is not ported")
         self.num_classes = num_classes
@@ -54,18 +59,22 @@ class Shared2FCBBoxHead(nn.Module):
         self.shared_fcs = nn.ModuleList([
             nn.Linear(in_channels * roi_size * roi_size, fc_out_channels),
             nn.Linear(fc_out_channels, fc_out_channels)])
+        out_ch = cls_channels or num_classes + 1
         if cls_predictor == "normed":
-            self.fc_cls = NormedLinear(fc_out_channels, num_classes + 1,
+            self.fc_cls = NormedLinear(fc_out_channels, out_ch,
                                        cls_temperature)
+        elif cls_predictor == "iif_normed":
+            self.fc_cls = IIFNormedLinear(fc_out_channels, num_classes + 1,
+                                          iif_weights, cls_temperature)
         else:
-            self.fc_cls = nn.Linear(fc_out_channels, num_classes + 1)
+            self.fc_cls = nn.Linear(fc_out_channels, out_ch)
         self.fc_reg = nn.Linear(
             fc_out_channels, 4 if reg_class_agnostic else num_classes * 4)
 
     def forward(self, roi_feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """roi_feats (R, 7, 7, C) -> (cls_score (R, C+1), bbox_pred
-        (R, C*4 or 4), embedding (R, 1024))."""
+        """roi_feats (R, 7, 7, C) -> (cls_score (R, C+1, or C+2 for
+        Seesaw), bbox_pred (R, C*4 or 4), embedding (R, 1024))."""
         x = roi_feats.permute(0, 3, 1, 2).reshape(roi_feats.shape[0], -1)
         x = x.float()
         for fc in self.shared_fcs:
@@ -166,7 +175,8 @@ def bbox_head_get_bboxes(
     max_per_img: int = 100,
 ):
     """Decode, the loss's custom activation (softmax(IIF x score) for
-    ``DetIIFLoss``), multiclass NMS (``bbox_head.py:315-377``). Batched
+    ``DetIIFLoss``, class softmax x P(object) for ``SeesawLoss``'s C+2
+    channels), multiclass NMS (``bbox_head.py:315-377``). Batched
     over the leading axis. Returns fixed-shape detections."""
     if getattr(loss_cls, "custom_activation", False):
         scores = loss_cls.get_activation(cls_score)

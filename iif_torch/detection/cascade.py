@@ -63,13 +63,15 @@ class CascadeRoIHead(nn.Module):
     def __init__(self, num_classes: int, cls_init: tuple,
                  cls_predictor: str, cls_temperature: float,
                  reg_class_agnostic: bool,
-                 mask_heads: Optional[Sequence[nn.Module]]):
+                 mask_heads: Optional[Sequence[nn.Module]],
+                 iif_weights=()):
         super().__init__()
         self.bbox_head = nn.ModuleList([
             Shared2FCBBoxHead(num_classes, cls_init=cls_init,
                               cls_predictor=cls_predictor,
                               cls_temperature=cls_temperature,
-                              reg_class_agnostic=reg_class_agnostic)
+                              reg_class_agnostic=reg_class_agnostic,
+                              iif_weights=iif_weights)
             for _ in STAGE_IOUS])
         self.mask_head = (None if mask_heads is None
                           else nn.ModuleList(mask_heads))
@@ -78,7 +80,9 @@ class CascadeRoIHead(nn.Module):
 class CascadeMaskRCNN(TwoStageTrunk):
     """Takes the keyword arguments of a ``configs/`` cascade model dict
     (``configs/fasa/fasa_iif_cascade_r101_rfs_cos_norm_2x.py``). The heads'
-    options are ``MaskRCNN``'s; ``reg_class_agnostic`` defaults to True
+    options are ``MaskRCNN``'s (``iif_weights`` with ``cls_predictor=
+    "iif_normed"``; no ``cls_channels``, as JAX's cascade takes none);
+    ``reg_class_agnostic`` defaults to True
     as in mmdet's cascade (the FASA cascade sets False); ``stage_stds``
     gives one entry a stage. The stages' IoUs and loss weights are
     ``STAGE_IOUS`` and ``STAGE_WEIGHTS``."""
@@ -93,7 +97,8 @@ class CascadeMaskRCNN(TwoStageTrunk):
                  cls_temperature: float = 8.0, mask_temperature: float = 20.0,
                  reg_class_agnostic: bool = True,
                  cls_init: tuple = ("normal", 0.01),
-                 stage_stds: Sequence[Sequence[float]] = STAGE_STDS):
+                 stage_stds: Sequence[Sequence[float]] = STAGE_STDS,
+                 iif_weights=()):
         super().__init__(num_classes, depth, with_mask, frozen_stages,
                          norm_eval, compute_dtype, backbone_type)
         self.reg_class_agnostic = reg_class_agnostic
@@ -102,7 +107,8 @@ class CascadeMaskRCNN(TwoStageTrunk):
             num_classes, tuple(cls_init), cls_predictor, cls_temperature,
             reg_class_agnostic,
             [self.make_mask_head(i, mask_predictor, mask_temperature)
-             for i in range(self.num_stages)] if with_mask else None)
+             for i in range(self.num_stages)] if with_mask else None,
+            iif_weights)
 
     def make_mask_head(self, stage: int, predictor: str,
                        temperature: float) -> nn.Module:

@@ -11,8 +11,9 @@ running_var (a grouped kernel (kh, kw, in/G, out) to (out, in/G, kh, kw)
 as any other), the HWC -> CHW permutation of the first shared FC undone, and
 the flip + transpose of the mask head's transposed conv undone. The
 normed predictors keep JAX's (in, out) kernels: ``NormedConv2d``'s as it
-stands, ``NormedLinear``'s less the 1 that JAX's forward subtracts (its
-kernel is drawn from U(0, 2)). Every map but that offset is linear, so a
+stands, ``NormedLinear``'s and ``IIFNormedLinear``'s less the 1 that
+JAX's forward subtracts (its kernel is drawn from U(0, 2)); a classifier
+of any width crosses as it is (Seesaw's C+2). Every map but that offset is linear, so a
 gradient pytree of the params converts the same way with
 ``gradients=True`` (pass zero ``batch_stats``): the training tests
 compare JAX's gradients with the port's under torch names through it.

@@ -1,7 +1,8 @@
 """MaskRCNN R50-FPN, its training loss and its inference pass: port of
 ``iif_tpu/detection/detector.py`` (``MaskRCNN`` in its resnet + fpn +
-shared2fc + FCN-mask configuration with the linear or the cosine-normed
-predictors, FASA in its loss, ``DetTrainCfg``, ``DetTestCfg``,
+shared2fc + FCN-mask configuration with the linear, the cosine-normed or
+the IIF-normed predictors, Seesaw's C+2 classifier and its counts and
+FASA in its loss, ``DetTrainCfg``, ``DetTestCfg``,
 ``normalize_if_uint8``, ``unpack_mask_bits``, ``resolve_gt_masks``,
 ``make_anchor_generator``, ``fpn_shapes``, ``maskrcnn_loss``,
 ``maskrcnn_simple_test``).
@@ -33,6 +34,7 @@ from iif_torch.detection.bbox_head import (
     bbox_targets,
 )
 from iif_torch.detection.fasa import fasa_aug_loss, fasa_update
+from iif_torch.detection.losses_extra import SeesawLoss
 from iif_torch.detection.mask_head import (
     FCNMaskHead,
     mask_head_loss,
@@ -89,11 +91,13 @@ class StandardRoIHead(nn.Module):
                  cls_init: tuple = ("normal", 0.01),
                  cls_predictor: str = "linear", mask_predictor: str = "conv",
                  cls_temperature: float = 8.0,
-                 mask_temperature: float = 20.0):
+                 mask_temperature: float = 20.0, cls_channels: int = 0,
+                 iif_weights=()):
         super().__init__()
         self.bbox_head = Shared2FCBBoxHead(
             num_classes, cls_init=cls_init, cls_predictor=cls_predictor,
-            cls_temperature=cls_temperature)
+            cls_temperature=cls_temperature, cls_channels=cls_channels,
+            iif_weights=iif_weights)
         self.mask_head = FCNMaskHead(
             num_classes, predictor=mask_predictor,
             temperature=mask_temperature) if with_mask else None
@@ -172,11 +176,15 @@ class TwoStageTrunk(nn.Module):
 
 class MaskRCNN(TwoStageTrunk):
     """Takes the keyword arguments of a ``configs/`` model dict.
-    ``backbone_type`` as ``TwoStageTrunk`` takes it; ``cls_predictor`` is ``"linear"`` or ``"normed"`` (``NormedLinear`` at
-    ``cls_temperature``), ``mask_predictor`` ``"conv"`` or ``"normed"``
-    (``NormedConv2d`` at ``mask_temperature``); ``cls_init`` initialises
-    a linear ``fc_cls`` in fresh weights (``fresh_init_``, as the JAX
-    package's ``model.init``)."""
+    ``backbone_type`` as ``TwoStageTrunk`` takes it; ``cls_predictor`` is
+    ``"linear"``, ``"normed"`` (``NormedLinear`` at ``cls_temperature``)
+    or ``"iif_normed"`` (``IIFNormedLinear`` with ``iif_weights``),
+    ``cls_channels`` the classifier's width (0: C+1; Seesaw's C+2, which
+    the CLIs set, ``inference.model_cfg_for_loss``), ``mask_predictor``
+    ``"conv"`` or ``"normed"`` (``NormedConv2d`` at
+    ``mask_temperature``); ``cls_init`` initialises a linear ``fc_cls``
+    in fresh weights (``fresh_init_``, as the JAX package's
+    ``model.init``)."""
 
     def __init__(self, num_classes: int = 1203, depth: int = 50,
                  with_mask: bool = True, frozen_stages: int = 1,
@@ -184,12 +192,13 @@ class MaskRCNN(TwoStageTrunk):
                  backbone_type: str = "resnet",
                  cls_predictor: str = "linear", mask_predictor: str = "conv",
                  cls_temperature: float = 8.0, mask_temperature: float = 20.0,
-                 cls_init: tuple = ("normal", 0.01)):
+                 cls_init: tuple = ("normal", 0.01), cls_channels: int = 0,
+                 iif_weights=()):
         super().__init__(num_classes, depth, with_mask, frozen_stages,
                          norm_eval, compute_dtype, backbone_type)
         self.roi_head = StandardRoIHead(
             num_classes, with_mask, cls_init, cls_predictor, mask_predictor,
-            cls_temperature, mask_temperature)
+            cls_temperature, mask_temperature, cls_channels, iif_weights)
 
     def forward_cls_only(self, embedding: torch.Tensor) -> torch.Tensor:
         return self.roi_head.bbox_head.cls_only(embedding)
@@ -280,7 +289,7 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         for name, t in list(model.named_parameters()) + list(
                 model.named_buffers()):
             *mods, leaf = name.split(".")
-            if leaf == "num_batches_tracked":
+            if leaf in ("num_batches_tracked", "iif"):   # iif: the data's
                 continue
             if name in init_std:
                 normal(t, init_std[name])
@@ -325,13 +334,16 @@ def maskrcnn_loss(
     With a ``fasa_state`` (``detection/fasa.py``) the positives'
     embeddings update it and, from ``epoch`` 1, the virtual features' CE
     through ``fc_cls`` joins ``loss_cls`` (``fasa_cfg``: ``decay_ratio``,
-    ``loss_aug_weight``).
+    ``loss_aug_weight``). With a ``SeesawLoss`` the sampled labels of
+    weight > 0 join its ``cum_samples`` before the loss (and FASA's aug
+    loss) reads them.
 
     Returns (total, losses, aux): ``losses`` has the JAX package's keys
     (``loss_cls``, ``loss_bbox``, ``loss_rpn_cls``, ``loss_rpn_bbox``,
     ``loss_mask``); ``aux`` holds the new ``fasa_state`` when one was
-    given (the JAX package's also carries the BN statistics, which
-    ``norm_eval`` leaves as they are)."""
+    given, Seesaw's new ``seesaw_cum`` and the positives' accuracy
+    ``acc`` (``get_accuracy``, in %) (the JAX package's also carries the
+    BN statistics, which ``norm_eval`` leaves as they are)."""
     noise = noise or {}
     images = batch["image"]
     b, img_h, img_w, _ = images.shape
@@ -368,14 +380,23 @@ def maskrcnn_loss(
     nhwc = [f.permute(0, 2, 3, 1) for f in feats[:4]]
     with record_function("bbox_roi_align"):
         roi_feats = SingleRoIExtractor((7, 7))(nhwc, rois5)
+    aux: Dict[str, Any] = {}
+    if isinstance(loss_cls, SeesawLoss):
+        # the step's valid labels counted before the loss reads them
+        # (detector.py:579-590); the new counts ride ``aux``
+        aux["seesaw_cum"] = loss_cls.update_cum(
+            tgts.labels.reshape(-1), tgts.label_weights.reshape(-1))
+        loss_cls = loss_cls.with_cum(aux["seesaw_cum"])
     with record_function("bbox_head_loss"):
         cls_score, bbox_pred, embedding = model.roi_head.bbox_head(
             roi_feats)
         l_cls, l_bbox = bbox_head_loss(cls_score, bbox_pred, tgts, loss_cls,
                                        model.num_classes)
+        if "seesaw_cum" in aux:
+            aux["acc"] = loss_cls.get_accuracy(cls_score.detach(),
+                                               tgts.labels.reshape(-1))
     losses = {"loss_cls": l_cls, "loss_bbox": l_bbox,
               "loss_rpn_cls": l_rpn_cls, "loss_rpn_bbox": l_rpn_bbox}
-    aux: Dict[str, Any] = {}
     if fasa_state is not None:
         with record_function("fasa"):
             aux["fasa_state"], l_aug = fasa_step(

@@ -26,6 +26,7 @@ from iif_torch.detection.losses import (
     compute_det_iif_from_counts,
     load_iif_csv,
 )
+from iif_torch.detection.losses_extra import SEESAW_CUM_KEY, SeesawLoss
 from iif_torch.detection.mask_head import paste_masks
 from iif_torch.detection.pipeline import DetectionPipeline
 from iif_torch.detection.simple_test import make_simple_test
@@ -48,9 +49,15 @@ class Detector:
 
 
 def build_loss_cls(cfg_loss: Dict[str, Any], dataset, num_classes: int):
-    """The classification loss as ``iif_tpu/cli/train_det.py:39-66``
-    builds it (``DetIIFLoss`` or the plain CE)."""
+    """The classification loss as ``iif_tpu/cli/train_det.py:39-71``
+    builds it (``DetIIFLoss``, ``SeesawLoss`` with its counts at 0, or
+    the plain CE)."""
     kind = cfg_loss.get("type", "DetCrossEntropyLoss")
+    if kind == "SeesawLoss":
+        return SeesawLoss(torch.zeros(num_classes + 1),
+                          p=cfg_loss.get("p", 0.8), q=cfg_loss.get("q", 2.0),
+                          eps=cfg_loss.get("eps", 1e-2),
+                          loss_weight=cfg_loss.get("loss_weight", 1.0))
     if kind == "DetIIFLoss":
         path = cfg_loss.get("path")
         variant = cfg_loss.get("variant", "raw")
@@ -75,15 +82,44 @@ def build_loss_cls(cfg_loss: Dict[str, Any], dataset, num_classes: int):
                                use_sigmoid=cfg_loss.get("use_sigmoid", False))
 
 
+def model_cfg_for_loss(model_cfg: Dict[str, Any], loss_cls
+                        ) -> Dict[str, Any]:
+    """``cfg.model`` as both JAX CLIs complete it from the loss
+    (``cli/train_det.py:173-185``, ``cli/test_det.py:277-281``): Seesaw's
+    classifier takes C+2 channels, ``cls_predictor="iif_normed"`` the
+    loss's IIF weights. Seesaw with another family than MaskRCNN raises
+    ``NotImplementedError`` (JAX threads its counts through
+    ``maskrcnn_loss`` only)."""
+    mcfg = dict(model_cfg)
+    if isinstance(loss_cls, SeesawLoss):
+        kind = mcfg.get("type", "MaskRCNN")
+        if kind != "MaskRCNN":
+            raise NotImplementedError(
+                f"SeesawLoss with {kind} is not ported (JAX threads its "
+                "counts through maskrcnn_loss only)")
+        mcfg.setdefault("cls_channels", mcfg["num_classes"] + 2)
+    if mcfg.get("cls_predictor") == "iif_normed":
+        weights = getattr(loss_cls, "weights", None)
+        if weights is None:
+            raise ValueError("cls_predictor='iif_normed' needs the IIF "
+                             "weights of a DetIIFLoss")
+        mcfg["iif_weights"] = tuple(float(x) for x in
+                                    np.asarray(weights.cpu()))
+    return mcfg
+
+
 def load_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Load an mmdet ``.pth`` (plain or runner checkpoint) by name."""
+    """Load an mmdet ``.pth`` (plain or runner checkpoint) by name;
+    Seesaw's counts (``SEESAW_CUM_KEY``), which inference does not read,
+    are left out."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("state_dict", "model"):
         if isinstance(ckpt, dict) and key in ckpt:
             ckpt = ckpt[key]
             break
     model.load_state_dict({k.replace("module.", ""): v
-                           for k, v in ckpt.items()})
+                           for k, v in ckpt.items()
+                           if k != SEESAW_CUM_KEY})
 
 
 def eval_pipeline(cfg: Config) -> DetectionPipeline:
@@ -103,10 +139,14 @@ def init_detector(config: Union[str, Config],
     """Build a detector from a config path. Weights come from an mmdet
     ``.pth`` checkpoint, or are seeded random (seed 0) without one. The
     classes and the classification loss come from ``dataset``, else from
-    the config's test set when its files exist."""
+    the config's test set when its files exist (without them the plain
+    CE, as in JAX, or ``SeesawLoss``, which needs no data). The model is
+    completed from the loss as ``test_det`` completes it
+    (``model_cfg_for_loss``): JAX's ``init_detector`` builds a Seesaw
+    config's classifier with C+1 channels, which Seesaw's activation
+    cannot split; the port follows ``test_det``'s C+2."""
     dev = resolve_device(device)
     cfg = config if not isinstance(config, str) else Config.fromfile(config)
-    model = build_detector(dict(cfg.model))
     num_classes = cfg.model["num_classes"]
 
     ds_cfg = {k: v for k, v in cfg.data["test"].items()
@@ -117,7 +157,10 @@ def init_detector(config: Union[str, Config],
         loss_cls = build_loss_cls(cfg.loss_cls, test_ds, num_classes)
     except FileNotFoundError:
         classes = [str(i) for i in range(num_classes)]
-        loss_cls = DetCrossEntropyLoss(num_classes=num_classes)
+        loss_cls = (build_loss_cls(cfg.loss_cls, None, num_classes)
+                    if cfg.loss_cls.get("type") == "SeesawLoss"
+                    else DetCrossEntropyLoss(num_classes=num_classes))
+    model = build_detector(model_cfg_for_loss(cfg.model, loss_cls))
 
     pipeline = eval_pipeline(cfg)
     if checkpoint:

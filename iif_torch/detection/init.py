@@ -12,7 +12,8 @@ parameter and BN statistic from the family of its flax initialiser.
   standard deviations, variance 1 / fan_in); a linear ``fc_cls`` from
   ``cls_init``, ``("constant", v)`` or ``("normal", std)`` with an
   optional third element for its bias, a normed one (``NormedLinear``,
-  ``models/layers.py:35-40``) U(0, 2) less the 1 its forward subtracts,
+  ``models/layers.py:35-40``, or ``IIFNormedLinear``, ``:57-63``, whose
+  IIF buffer is the dataset's) U(0, 2) less the 1 its forward subtracts,
   so U(-1, 1); ``fc_reg`` ``normal(0.001)``; biases 0.
 - FCN mask head (``detection/mask_head.py:52-73``): convolutions
   ``variance_scaling(2, fan_out, normal)``, the transposed convolution
@@ -46,7 +47,7 @@ from iif_torch.detection.mask_head import (
 )
 from iif_torch.detection.necks import FPN
 from iif_torch.detection.rpn import RPNHead
-from iif_torch.models.layers import NormedLinear
+from iif_torch.models.layers import IIFNormedLinear, NormedLinear
 from iif_torch.models.resnet import Bottleneck, ResLayer, ResNet
 from iif_torch.utils.init import ParamInit, receptive
 
@@ -95,8 +96,10 @@ def _linear_lecun(init: ParamInit, fc: nn.Linear) -> None:
 def _bbox_head(init: ParamInit, head: Shared2FCBBoxHead) -> None:
     for fc in head.shared_fcs:
         _linear_lecun(init, fc)
-    if isinstance(head.fc_cls, NormedLinear):
+    if isinstance(head.fc_cls, (NormedLinear, IIFNormedLinear)):
         init.uniform(head.fc_cls.weight, 1.0)
+        if isinstance(head.fc_cls, IIFNormedLinear):   # data, not a draw
+            init.done.add(id(head.fc_cls.iif))
     else:
         kind, value = head.cls_init[:2]
         if kind == "constant":

@@ -8,7 +8,8 @@ The pipeline's two branches:
   the static canvas), then the uint8 canvas padded with the rounded mean
   pixel, so that the device-side normalisation
   (``detector.normalize_if_uint8``) maps the pad to ~0; on the target
-  device.
+  device. ``eval_view`` is the same at a given scale with an optional
+  flip, one view of test-time augmentation.
 - train (``sample``, the JAX ``__call__(..., train=True)``): on the host,
   in numpy, with the JAX draw order from the sample's ``RandomState``:
   the scale index (or ``scale_idx``), its canvas bucket, the keep-ratio
@@ -134,17 +135,30 @@ class DetectionPipeline:
     def __call__(self, image: np.ndarray, device: torch.device
                  ) -> Dict[str, Any]:
         """Eval branch: (H0, W0, 3) uint8 RGB -> {image (H, W, 3) uint8
-        canvas on ``device``, img_shape (2,), scale_factor ()}."""
+        canvas on ``device``, img_shape (2,), scale_factor (), flip ()}:
+        ``eval_view`` at the first scale, unflipped."""
+        return self.eval_view(image, self.scales[0], False, device)
+
+    def eval_view(self, image: np.ndarray, scale: Tuple[int, int],
+                  flip: bool, device: torch.device) -> Dict[str, Any]:
+        """One test-time augmentation view (``MultiScaleFlipAug``,
+        ``pipeline.py:596-``): the eval branch at ``scale`` (keep-ratio,
+        never past the canvas), then, with ``flip``, the resized image
+        mirrored before the padding. {image (H, W, 3) uint8 canvas on
+        ``device``, img_shape (2,), scale_factor (), flip ()}."""
         h0, w0 = image.shape[:2]
         ch, cw = self.canvas
-        factor, nh, nw = resized_shape(h0, w0, self.scales[0], self.canvas)
-        img = torch.from_numpy(np.ascontiguousarray(image)).to(device)
+        factor, nh, nw = resized_shape(h0, w0, tuple(scale), self.canvas)
+        img = resize_bilinear(torch.from_numpy(np.ascontiguousarray(image))
+                              .to(device), nh, nw)
+        if flip:
+            img = img.flip(1)
         out = torch.empty((ch, cw, 3), dtype=torch.uint8, device=device)
         out[:] = torch.from_numpy(self._pad_pixel).to(device)
-        out[:nh, :nw] = resize_bilinear(img, nh, nw)
+        out[:nh, :nw] = img
         return {"image": out,
                 "img_shape": np.array([nh, nw], np.int32),
-                "scale_factor": np.float32(factor)}
+                "scale_factor": np.float32(factor), "flip": np.bool_(flip)}
 
     def sample(self, image: np.ndarray, ann: Dict[str, Any],
                rng: np.random.RandomState, mix_fetch=None,

@@ -43,7 +43,7 @@ import torch
 from torch.profiler import record_function
 
 from iif_torch.device import resolve_device
-from iif_torch.engine.schedules import build_optimizer
+from iif_torch.engine.schedules import build_optimizer, flax_offset_params
 from iif_torch.losses.mixup import mixup_batch, mixup_criterion, sample_mixup
 from iif_torch.ops.nms import top_k
 from iif_torch.quant import fake_quant_params, observe_scales
@@ -93,8 +93,9 @@ class ClassificationTrainer:
         """The optimizer over the parameters that require a gradient, at
         step 0."""
         name, momentum, wd = self.opt
-        opt, sched = build_optimizer(name, self.model.parameters(),
-                                     self.lr_schedule, momentum, wd)
+        opt, sched = build_optimizer(
+            name, self.model.parameters(), self.lr_schedule, momentum, wd,
+            decay_offset=flax_offset_params(self.model))
         return TrainState(0, opt, sched)
 
     def _images(self, batch: Dict[str, Any]) -> torch.Tensor:

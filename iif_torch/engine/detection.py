@@ -1,27 +1,38 @@
 """Detection trainer: port of ``iif_tpu/engine/detection.py``
-(``DetectionTrainer`` with ``init_state``, one train step,
-``train_one_epoch``, the FASA val pass ``fasa_val_epoch`` with
-``_fasa_accumulate_batch``, and ``frozen_backbone_mask``) for the
+(``DetectionTrainer`` with ``init_state``, one train step with gradient
+accumulation, ``train_one_epoch``, the FASA val pass ``fasa_val_epoch``
+with ``_fasa_accumulate_batch``, and ``frozen_backbone_mask``) for the
 MaskRCNN, Cascade Mask R-CNN, HTC and Faster R-CNN C4 losses, with
-``grad_accum=1`` and no EMA, Seesaw or Dynamic R-CNN state. The step
+FASA's and Seesaw's state and no EMA or Dynamic R-CNN state. The step
 dispatches on the model as the JAX trainer does (``engine/
 detection.py:307-335``): ``maskrcnn_loss`` for ``MaskRCNN``, ``htc_loss``
 for ``HTC`` and ``cascade_loss`` for ``CascadeMaskRCNN`` (their stages
 share the one loss), ``c4_loss`` for ``C4FasterRCNN``; other families
-raise. FASA with HTC raises, as JAX's ``htc_loss`` takes no FASA state.
+raise. FASA with HTC raises, as JAX's ``htc_loss`` takes no FASA state;
+``SeesawLoss`` with any family but MaskRCNN raises, as JAX threads its
+counts through ``maskrcnn_loss`` only.
 
 FASA's state (``detection/fasa.py``; one ``FasaState`` a stage for the
-cascade) rides in the train state; the aug loss is on from epoch 1
-(``fasa_aug_on``, ``engine/detection.py:469-470``).
+cascade) and Seesaw's ``cum_samples`` (``seesaw_cum``) ride in the train
+state; the aug loss is on from epoch 1 (``fasa_aug_on``,
+``engine/detection.py:469-470``).
 
-The JAX step folds the step number into its base key; here each step
-draws its sampling noise from a ``torch.Generator`` seeded from
-``(seed, step)``, and the FASA val pass from ``(seed, step + 999_983)``.
-The step returns the JAX package's metrics: the losses and their sum
-under ``"loss"``, and with gradient clipping the global norm under
-``"grad_norm"``, as device tensors (nothing syncs with the host). The
-backward and the optimizer are ``record_function`` spans (``backward``,
-``optimizer``) beside the loss's stage spans.
+With ``grad_accum`` n > 1 the batch splits along axis 0 into n
+micro-batches, taken in order (``engine/detection.py:346-380``, JAX's
+``lax.scan``): FASA's and Seesaw's state thread through them, each
+backward adds its gradient, and the sum is divided by n before the
+optimizer; the metrics are the micro-batches' means.
+
+The JAX step folds ``step`` (``step * n + i`` for micro-batch i) into its
+base key; here each (micro-)batch draws its sampling noise from a
+``torch.Generator`` seeded from ``(seed, step * n + i)``, and the FASA
+val pass from ``(seed, step + 999_983)``. The step returns the JAX
+package's metrics: the losses and their sum under ``"loss"``, with
+gradient clipping the global norm under ``"grad_norm"``, and with Seesaw
+the positives' accuracy under ``"acc"`` (its ``get_accuracy``), as device
+tensors (nothing syncs with the host). The backward and the optimizer
+are ``record_function`` spans (``backward``, ``optimizer``) beside the
+loss's stage spans.
 
 ``train_one_epoch`` reads the metrics back asynchronously, as the JAX
 package's does: a step's metrics wait in a window of ``SYNC_WINDOW``
@@ -64,11 +75,18 @@ from iif_torch.detection.fasa import (
     init_fasa_state,
 )
 from iif_torch.detection.htc import HTC, htc_loss
+from iif_torch.detection.inference import model_cfg_for_loss
 from iif_torch.detection.init import fresh_init_
+from iif_torch.detection.losses_extra import SeesawLoss
 from iif_torch.detection.roi_extractor import SingleRoIExtractor
 from iif_torch.detection.rpn import rpn_proposals
 from iif_torch.device import resolve_device
-from iif_torch.engine.schedules import build_lr_schedule, build_optimizer
+from iif_torch.engine.schedules import (
+    build_lr_schedule,
+    build_optimizer,
+    flax_offset_params,
+    norm_decay_mask,
+)
 from iif_torch.utils.metrics import MetricLogger
 
 # the batch keys the losses read (``engine/detection.py:455-460``, less
@@ -98,6 +116,7 @@ class DetTrainState:
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
     fasa: Any = None     # a FasaState, a tuple of one a stage, or None
+    seesaw_cum: Optional[torch.Tensor] = None   # SeesawLoss's (C+1,)
 
 
 def init_fasa_states(model, instance_counts: np.ndarray,
@@ -125,7 +144,10 @@ class DetectionTrainer:
     under ``lr_schedule``; ``optimizer_cfg`` is the config's ``optimizer``
     dict (type, momentum, weight_decay), ``grad_clip`` the global-norm
     bound of ``optimizer_config.grad_clip``, ``fasa_cfg`` the config's
-    (decay_ratio, loss_aug_weight, dynamic_up, dynamic_down)."""
+    (decay_ratio, loss_aug_weight, dynamic_up, dynamic_down),
+    ``grad_accum`` the micro-batches a step (``data.grad_accum``) and
+    ``norm_decay`` False to take the normalisation layers' parameters
+    out of the weight decay (``norm_decay_mask``)."""
 
     def __init__(self, model: Union[MaskRCNN, CascadeMaskRCNN,
                                     C4FasterRCNN], loss_cls,
@@ -134,11 +156,19 @@ class DetectionTrainer:
                  optimizer_cfg: Optional[Dict[str, Any]] = None,
                  seed: int = 0, device: Union[str, torch.device] = "cuda",
                  grad_clip: Optional[float] = None,
-                 fasa_cfg: Optional[Dict[str, Any]] = None):
+                 fasa_cfg: Optional[Dict[str, Any]] = None,
+                 grad_accum: int = 1, norm_decay: bool = True):
         if fasa_cfg is not None and isinstance(model, HTC):
             raise NotImplementedError(
                 "FASA with HTC is not ported (JAX's htc_loss takes no FASA "
                 "state)")
+        if isinstance(loss_cls, SeesawLoss) and \
+                _loss_fn(model) is not maskrcnn_loss:
+            raise NotImplementedError(
+                f"SeesawLoss with {type(model).__name__} is not ported "
+                "(JAX threads its counts through maskrcnn_loss only)")
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         self.device = resolve_device(device)
         self.loss_fn = _loss_fn(model)
         self.model = model.to(self.device).train()
@@ -149,16 +179,26 @@ class DetectionTrainer:
         self.seed = seed
         self.grad_clip = grad_clip
         self.fasa_cfg = fasa_cfg
+        self.grad_accum = int(grad_accum)
+        self.norm_decay = norm_decay
 
     def init_state(self, fasa_state=None) -> DetTrainState:
-        """Optimizer state over the trainable parameters, at step 0, and
-        FASA's state (``init_fasa_states``) when it trains with FASA."""
+        """Optimizer state over the trainable parameters, at step 0,
+        FASA's state (``init_fasa_states``) when it trains with FASA, and
+        Seesaw's counts (the loss's, zeros from the CLI) with Seesaw."""
         ocfg = self.optimizer_cfg
+        decay = norm_decay_mask(self.model)
         opt, sched = build_optimizer(
             ocfg.get("type", "sgd"), self.model.parameters(),
             self.lr_schedule, ocfg.get("momentum", 0.9),
-            ocfg.get("weight_decay", 1e-4), grad_clip=self.grad_clip)
-        return DetTrainState(0, opt, sched, fasa_state)
+            ocfg.get("weight_decay", 1e-4), grad_clip=self.grad_clip,
+            no_decay=() if self.norm_decay else [
+                p for n, p in self.model.named_parameters()
+                if not decay[n]],
+            decay_offset=flax_offset_params(self.model))
+        cum = (self.loss_cls.cum_samples.clone()
+               if isinstance(self.loss_cls, SeesawLoss) else None)
+        return DetTrainState(0, opt, sched, fasa_state, cum)
 
     def _generator(self, step: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
@@ -166,33 +206,56 @@ class DetectionTrainer:
 
     def train_step(self, state: DetTrainState,
                    batch: Dict[str, Any],
-                   noise: Optional[Dict[str, Any]] = None, epoch: int = 0
+                   noise: Union[None, Dict[str, Any],
+                                List[Optional[Dict[str, Any]]]] = None,
+                   epoch: int = 0
                    ) -> Tuple[DetTrainState, Dict[str, torch.Tensor]]:
-        """One SGD step on ``batch`` (see ``maskrcnn_loss``,
-        ``cascade_loss`` or ``c4_loss`` for its keys; ``noise`` as
-        there) in ``epoch`` (FASA's aug loss from epoch 1). Updates the
-        model and ``state`` in place and returns them with the
-        metrics."""
+        """One optimizer step on ``batch`` (see ``maskrcnn_loss``,
+        ``cascade_loss`` or ``c4_loss`` for its keys; ``noise`` as there,
+        with ``grad_accum`` > 1 a list of one a micro-batch) in ``epoch``
+        (FASA's aug loss from epoch 1). Updates the model and ``state``
+        in place and returns them with the metrics."""
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
         self.model.train()
-        kwargs = {}
-        if state.fasa is not None:
-            kwargs = {"fasa_state": state.fasa, "fasa_cfg": self.fasa_cfg,
-                      "epoch": 1 if epoch >= 1 else 0}
-        total, losses, aux = self.loss_fn(
-            self.model, batch, self.loss_cls, self.train_cfg,
-            generator=self._generator(state.step), noise=noise, **kwargs)
-        with record_function("backward"):
-            state.optimizer.zero_grad(set_to_none=True)
-            total.backward()
+        n = self.grad_accum
+        micro = split_micro_batches(batch, n)
+        noises = [noise] if n == 1 else list(noise or [None] * n)
+        totals, per_losses = [], []
+        for i, mb in enumerate(micro):
+            kwargs = {}
+            if state.fasa is not None:
+                kwargs = {"fasa_state": state.fasa,
+                          "fasa_cfg": self.fasa_cfg,
+                          "epoch": 1 if epoch >= 1 else 0}
+            loss_cls = (self.loss_cls if state.seesaw_cum is None
+                        else self.loss_cls.with_cum(state.seesaw_cum))
+            total, losses, aux = self.loss_fn(
+                self.model, mb, loss_cls, self.train_cfg,
+                generator=self._generator(state.step * n + i),
+                noise=noises[i], **kwargs)
+            with record_function("backward"):
+                if i == 0:
+                    state.optimizer.zero_grad(set_to_none=True)
+                total.backward()
+            state.fasa = aux.get("fasa_state", state.fasa)
+            state.seesaw_cum = aux.get("seesaw_cum", state.seesaw_cum)
+            totals.append(total.detach())
+            per_losses.append({k: v.detach() for k, v in losses.items()})
+            if "acc" in aux:
+                per_losses[-1]["acc"] = aux["acc"]
+        if n > 1:
+            # JAX sums the micro-batches' gradients, then divides by n
+            with record_function("backward"):
+                torch._foreach_div_([p.grad for p in self.model.parameters()
+                                     if p.grad is not None], float(n))
         with record_function("optimizer"):
             state.optimizer.step()
             state.scheduler.step()
         state.step += 1
-        state.fasa = aux.get("fasa_state", state.fasa)
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss"] = total.detach()
+        metrics = {k: torch.stack([m[k] for m in per_losses]).mean()
+                   for k in per_losses[0]}
+        metrics["loss"] = torch.stack(totals).mean()
         if state.optimizer.grad_clip is not None:
             metrics["grad_norm"] = state.optimizer.grad_clip.last_norm
         return state, metrics
@@ -357,6 +420,20 @@ class DetectionTrainer:
         return tuple(new) if cascade else new[0]
 
 
+def split_micro_batches(batch: Dict[str, torch.Tensor], n: int
+                        ) -> List[Dict[str, torch.Tensor]]:
+    """``batch`` split along axis 0 into ``n`` equal micro-batches, in
+    order (JAX's ``x.reshape((n, B // n) + ...)``). Raises ``ValueError``
+    when n does not divide the batch."""
+    if n == 1:
+        return [batch]
+    b = next(iter(batch.values())).shape[0]
+    if b % n:
+        raise ValueError(f"grad_accum {n} does not divide the batch of {b}")
+    return [{k: v.reshape((n, b // n) + tuple(v.shape[1:]))[i]
+             for k, v in batch.items()} for i in range(n)]
+
+
 def _loss_fn(model) -> Callable:
     """The loss of the model's family, as the JAX trainer dispatches."""
     if isinstance(model, C4FasterRCNN):
@@ -375,26 +452,34 @@ def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
                         device: Union[str, torch.device] = "cuda"
                         ) -> DetectionTrainer:
     """A trainer for a MaskRCNN, Cascade Mask R-CNN, HTC or Faster R-CNN
-    C4 config as ``iif_tpu/cli/train_det.py`` builds one (model,
-    ``train_cfg``, with masks the pipeline's ``mask_stride``, the
-    step-decay schedule with warm-up, SGD with
-    ``optimizer_config.grad_clip``'s ``max_norm``, ``fasa_cfg``), from
-    fresh weights drawn as the JAX package's ``model.init`` draws them
+    C4 config as ``iif_tpu/cli/train_det.py`` builds one (model completed
+    from the loss, ``model_cfg_for_loss``; ``train_cfg``, with masks the
+    pipeline's ``mask_stride``; the step-decay schedule with warm-up; the
+    optimizer with ``optimizer_config.grad_clip``'s ``max_norm`` and, for
+    ``optimizer.paramwise_cfg.norm_decay_mult=0``, no decay on the
+    normalisation layers; ``data.grad_accum``; ``fasa_cfg``), from fresh
+    weights drawn as the JAX package's ``model.init`` draws them
     (``fresh_init_``, seeded; ``cls_init`` from the config). Raises
-    ``NotImplementedError`` for what the port does not train with:
-    gradient accumulation, parameter-wise optimizer settings and other
-    LR policies."""
+    ``NotImplementedError`` for what the port does not train with: other
+    parameter-wise optimizer settings (JAX reads only
+    ``norm_decay_mult=0``) and other LR policies."""
     device = resolve_device(device)
     ocfg, lcfg = dict(cfg.optimizer), dict(cfg.get("lr_config", {}))
+    pw = dict(ocfg.get("paramwise_cfg") or {})
     unported = {
-        "data.grad_accum": cfg.data.get("grad_accum", 1) != 1,
-        "optimizer.paramwise_cfg": bool(ocfg.get("paramwise_cfg")),
+        f"optimizer.paramwise_cfg {pw}": bool(pw) and pw != {
+            "norm_decay_mult": 0.0},
         "lr_config.policy": lcfg.get("policy", "step") != "step",
     }
     for key, bad in unported.items():
         if bad:
             raise NotImplementedError(f"{key} is not ported")
-    model = build_detector(dict(cfg.model))
+    accum, batch = cfg.data.get("grad_accum", 1), cfg.data.get(
+        "samples_per_gpu", 4)
+    if accum < 1 or batch % accum:
+        raise ValueError(f"data.grad_accum {accum} does not divide "
+                         f"data.samples_per_gpu {batch}")
+    model = build_detector(model_cfg_for_loss(cfg.model, loss_cls))
     fresh_init_(model, torch.Generator().manual_seed(seed))
     tc = dict(cfg.get("train_cfg", {}))
     if isinstance(model, (MaskRCNN, CascadeMaskRCNN)):
@@ -410,4 +495,6 @@ def trainer_from_config(cfg, loss_cls, steps_per_epoch: int, seed: int = 0,
                             train_cfg_from_dict(tc), ocfg, seed=seed,
                             device=device,
                             grad_clip=grad_clip.get("max_norm"),
-                            fasa_cfg=cfg.get("fasa_cfg"))
+                            fasa_cfg=cfg.get("fasa_cfg"),
+                            grad_accum=accum,
+                            norm_decay=not pw)

@@ -1,8 +1,8 @@
 """LR schedule and optimizer: port of ``iif_tpu/engine/schedules.py``
 (``build_lr_schedule`` with step decay or the per-epoch cosine and the
 linear warm-up, ``build_optimizer`` for ``sgd``, ``nesterov``,
-``rmsprop`` and ``adamw``, ``classifier_mask`` and
-``reinit_classifier_head`` for decoupled classifier training).
+``rmsprop`` and ``adamw`` with ``norm_decay_mask``, ``classifier_mask``
+and ``reinit_classifier_head`` for decoupled classifier training).
 
 The JAX package's optax chains, and their counterparts here, over the
 trainable parameters only (a frozen parameter has ``requires_grad`` off:
@@ -31,6 +31,16 @@ does.
 optax's ``clip_by_global_norm`` first in the chain, before the coupled
 decay and the momentum: ``GlobalNormClip``, a step pre-hook over the
 trainable gradients.
+
+A decay mask (JAX's ``decay_mask``, the RSB recipe's ``paramwise_cfg=
+dict(norm_decay_mult=0.)``: ``norm_decay_mask``) takes its parameters out
+of the decay, coupled or decoupled: they form a parameter group at
+``weight_decay`` 0. The decay acts on JAX's parameter, which for a
+``NormedLinear`` or ``IIFNormedLinear`` weight is the port's weight plus
+1 (flax's kernel, ``flax_offset_params``): those weights form a group
+with ``decay_offset`` 1, decayed as ``wd * (p + 1)`` (for the coupled
+decay a step pre-hook adds ``wd * 1`` to their gradients, after the
+clipping; ``AdamWOptax`` adds it in its update).
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from iif_torch.models.layers import IIFNormedLinear, NormedLinear
 from iif_torch.utils.init import HEAD_NAMES, ParamInit, head_of
 
 
@@ -127,7 +138,8 @@ class AdamWOptax(torch.optim.Optimizer):
     def __init__(self, params, lr: float = 1.0, weight_decay: float = 0.0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
-                                      b1=b1, b2=b2, eps=eps))
+                                      b1=b1, b2=b2, eps=eps,
+                                      decay_offset=0.0))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -153,7 +165,9 @@ class AdamWOptax(torch.optim.Optimizer):
                 u = (st["mu"] / c1) / (torch.sqrt(st["nu"] / c2)
                                        + group["eps"])
                 if group["weight_decay"]:
-                    u = u + group["weight_decay"] * p
+                    kernel = (p + group["decay_offset"]
+                              if group["decay_offset"] else p)
+                    u = u + group["weight_decay"] * kernel
                 p.add_(u * -group["lr"])
 
 
@@ -187,6 +201,20 @@ class GlobalNormClip:
         self.last_norm = norm
 
 
+def _coupled_decay_offset(optimizer: torch.optim.Optimizer, args, kwargs
+                          ) -> None:
+    """Step pre-hook: ``wd * decay_offset`` added to the gradients of the
+    groups with an offset, so the coupled decay acts on ``p + offset``."""
+    with torch.no_grad():
+        for group in optimizer.param_groups:
+            off = group.get("decay_offset", 0.0)
+            if off and group["weight_decay"]:
+                grads = [p.grad for p in group["params"]
+                         if p.grad is not None]
+                if grads:
+                    torch._foreach_add_(grads, group["weight_decay"] * off)
+
+
 def build_optimizer(
     opt_name: str,
     params: Iterable[torch.nn.Parameter],
@@ -194,16 +222,30 @@ def build_optimizer(
     momentum: float = 0.9,
     weight_decay: float = 1e-4,
     grad_clip: Optional[float] = None,
+    no_decay: Iterable[torch.nn.Parameter] = (),
+    decay_offset: Iterable[torch.nn.Parameter] = (),
 ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
     """The optimizer of ``opt_name`` (``sgd``, ``nesterov``, ``rmsprop``,
     ``adamw``) over the parameters that require a gradient (the
     trainable mask: a frozen stage has ``requires_grad`` off), and the
     scheduler that sets its rate from ``lr_schedule`` at every step.
-    With ``grad_clip`` the optimizer's ``grad_clip`` attribute is its
-    ``GlobalNormClip`` (else None). Other names raise ``ValueError``, as
-    JAX's does."""
+    The parameters of ``no_decay`` take no weight decay, those of
+    ``decay_offset`` (``flax_offset_params``) a decay of ``p + 1``, each
+    a group of its own. With ``grad_clip`` the optimizer's ``grad_clip``
+    attribute is its ``GlobalNormClip`` (else None). Other names raise
+    ``ValueError``, as JAX's does."""
     name = opt_name.lower()
-    params = [p for p in params if p.requires_grad]
+    skip = {id(p) for p in no_decay}
+    offset = {id(p) for p in decay_offset} - skip if weight_decay else set()
+    trainable = [p for p in params if p.requires_grad]
+    params = [{"params": [p for p in trainable
+                          if id(p) not in skip | offset]}]
+    if skip:
+        params.append({"params": [p for p in trainable if id(p) in skip],
+                       "weight_decay": 0.0})
+    if offset:
+        params.append({"params": [p for p in trainable if id(p) in offset],
+                       "decay_offset": 1.0})
     if name in ("sgd", "nesterov"):
         opt = torch.optim.SGD(params, lr=1.0, momentum=momentum,
                               dampening=0.0, weight_decay=weight_decay,
@@ -219,7 +261,34 @@ def build_optimizer(
     opt.grad_clip = GlobalNormClip(grad_clip) if grad_clip else None
     if opt.grad_clip is not None:
         opt.register_step_pre_hook(opt.grad_clip)
+    if offset and name != "adamw":          # after the clipping, as JAX
+        opt.register_step_pre_hook(_coupled_decay_offset)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_schedule)
+
+
+def flax_offset_params(model: torch.nn.Module) -> list:
+    """The weights whose flax kernel is the weight plus 1 (``NormedLinear``
+    and ``IIFNormedLinear``: flax draws U(0, 2) and subtracts 1 in the
+    forward), which the weight decay pulls towards -1 in JAX."""
+    return [m.weight for m in model.modules()
+            if isinstance(m, (NormedLinear, IIFNormedLinear))]
+
+
+NORM_LAYERS = (torch.nn.modules.batchnorm._NormBase, torch.nn.GroupNorm,
+               torch.nn.LayerNorm)
+
+
+def norm_decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
+    """Parameter name -> whether it takes weight decay (JAX's
+    ``norm_decay_mask``, ``engine/schedules.py:173-``): False for a
+    normalisation layer's weight and bias (flax's ``scale`` and the
+    ``bias`` beside it), True for every other parameter."""
+    out = {}
+    for mod_name, mod in model.named_modules():
+        for name, _ in mod.named_parameters(recurse=False):
+            full = f"{mod_name}.{name}" if mod_name else name
+            out[full] = not isinstance(mod, NORM_LAYERS)
+    return out
 
 
 def classifier_mask(model: torch.nn.Module) -> Dict[str, bool]:

@@ -1,7 +1,8 @@
 """Classifier heads and the SE block: port of ``iif_tpu/models/layers.py``
 (``NormedLinear``, ``CosNormClassifier`` with and without ``lr_scale``,
 ``SEBlock``, ``make_classifier_head``), selected by ``--classif_norm`` in
-{None, norm, cosine, lr_cosine}.
+{None, norm, cosine, lr_cosine}, and the detection head's
+``IIFNormedLinear``.
 
 dtypes follow flax: the plain head (flax ``Dense`` with ``dtype=None``)
 promotes a bf16 pooled feature to f32 against its f32 kernel, so it
@@ -10,9 +11,10 @@ cast their normalised weights to the feature's dtype and compute in it.
 The SE block's dense layers likewise compute in f32, and its output is
 f32 (the bf16 input times the f32 gate).
 
-Parameters hold the reference's values: ``NormedLinear.weight`` (in, out)
-is flax's kernel less 1 (flax draws U(0, 2) and subtracts 1 in its
-forward), ``CosNormClassifier.weight`` (out, in) flax's kernel.
+Parameters hold the reference's values: ``NormedLinear.weight`` and
+``IIFNormedLinear.weight`` (in, out) are flax's kernel less 1 (flax draws
+U(0, 2) and subtracts 1 in its forward), ``CosNormClassifier.weight``
+(out, in) flax's kernel.
 """
 from __future__ import annotations
 
@@ -50,6 +52,35 @@ class NormedLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight / (torch.linalg.vector_norm(
             self.weight, dim=0, keepdim=True) + EPS)
+        x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + EPS)
+        return self.temperature * (x @ w.to(x.dtype))
+
+
+class IIFNormedLinear(nn.Module):
+    """``NormedLinear`` whose weight columns are multiplied by the IIF
+    vector before they are normalised (reference ``normed_predictor.py:
+    43-76``): ``normalize(x) @ normalize(W * iif, columns)``, times
+    ``temperature``. ``iif`` is a buffer (it comes from the dataset, as
+    JAX's static field; not saved in a state_dict), one entry an output.
+
+    A positive entry scales its column and the normalisation divides it
+    out again, so the output equals ``NormedLinear``'s to rounding; a zero
+    entry zeroes its column. The port computes what JAX computes."""
+
+    def __init__(self, in_features: int, out_features: int, iif_weights,
+                 temperature: float = 8.0):
+        super().__init__()
+        iif = torch.as_tensor(iif_weights, dtype=torch.float32)
+        if iif.shape != (out_features,):
+            raise ValueError(f"{tuple(iif.shape)} IIF weights for "
+                             f"{out_features} outputs")
+        self.weight = nn.Parameter(torch.empty(in_features, out_features))
+        self.register_buffer("iif", iif.clone(), persistent=False)
+        self.temperature = temperature
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight * self.iif[None, :]
+        w = w / (torch.linalg.vector_norm(w, dim=0, keepdim=True) + EPS)
         x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + EPS)
         return self.temperature * (x @ w.to(x.dtype))
 

@@ -239,9 +239,17 @@ def test_build_detector_and_dispatch():
     with pytest.raises(NotImplementedError, match="detectors"):
         td.build_detector({"type": "CascadeMaskRCNN",
                            "backbone_type": "detectors"})
-    with pytest.raises(NotImplementedError, match="iif_normed"):
+    # the IIF-normed classifier needs the loss's IIF vector
+    with pytest.raises(ValueError, match="IIF weights"):
         td.build_detector({"type": "CascadeMaskRCNN",
                            "cls_predictor": "iif_normed"})
+    with torch.device("meta"):
+        model = td.build_detector({"type": "CascadeMaskRCNN",
+                                   "num_classes": 3,
+                                   "cls_predictor": "iif_normed",
+                                   "iif_weights": (1.0, 2.0, 0.5, 1.0)})
+    assert all(type(h.fc_cls).__name__ == "IIFNormedLinear"
+               for h in model.roi_head.bbox_head)
 
 
 def test_init_detector_serves_the_fasa_cascade_config(shallow, tmp_path):

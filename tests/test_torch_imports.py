@@ -74,7 +74,8 @@ def test_port_package_has_every_module():
                 "data/autoaugment.py", "data/branch_augment.py",
                 "quant.py", "engine/calibration.py",
                 "cli/train_quantization.py", "detection/cascade.py",
-                "detection/fasa.py", "detection/htc.py"):
+                "detection/fasa.py", "detection/htc.py",
+                "detection/losses_extra.py", "detection/tta.py"):
         assert mod in names, mod
     for src in ("roi_align_ml.cu", "roi_align.cu", "roi_align_common.cuh"):
         assert (REPO / "iif_torch" / "csrc" / src).is_file(), src

@@ -206,8 +206,8 @@ def test_cli_trains_resumes_and_serves(data, tmp_path, monkeypatch):
      NotImplementedError, "evaluation"),
     (["--tp", "2"], {}, NotImplementedError, "--tp"),
     (["--selectp", "1"], {}, NotImplementedError, "--selectp"),
-    ([], {"data.grad_accum": 2}, NotImplementedError, "grad_accum"),
-    ([], {"optimizer.paramwise_cfg": {"norm_decay_mult": 0.0}},
+    ([], {"data.grad_accum": 3}, ValueError, "grad_accum"),
+    ([], {"optimizer.paramwise_cfg": {"bias_decay_mult": 0.0}},
      NotImplementedError, "paramwise_cfg"),
     ([], {"custom_hooks": [{"type": "EMAHook"}]}, NotImplementedError,
      "EMAHook"),
@@ -218,7 +218,8 @@ def test_cli_trains_resumes_and_serves(data, tmp_path, monkeypatch):
     ([], {"pipeline.with_seg": True}, NotImplementedError, "with_seg"),
     ([], {"pipeline.extras": [{"type": "CutOut"}]}, NotImplementedError,
      "extra_transforms"),
-    ([], {"loss_cls.type": "SeesawLoss"}, NotImplementedError, "Seesaw"),
+    ([], {"loss_cls.type": "SeesawLoss", "model.type": "CascadeMaskRCNN"},
+     NotImplementedError, "Seesaw"),
     ([], {"model.type": "LD"}, NotImplementedError, "LD"),
     ([], {"model.num_classes": 9}, ValueError, "num_classes"),
 ])
